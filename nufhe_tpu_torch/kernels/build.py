@@ -1,0 +1,127 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each source in ``csrc/`` becomes one shared library with a plain C
+interface (pointers and the stream as ``c_void_p``; the launcher selects
+the device ordinal it is given, launches, and returns
+``cudaGetLastError()``), compiled for ``sm_90a`` into ``_build/``
+(git-ignored) the first time it is needed.  The library's file name
+carries a hash of its source, so an edited source is rebuilt and a stale
+library is never loaded.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for all.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+# name -> (source file, C entry point, ctypes argument types)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+KERNELS = {
+    "cmux_step": ("cmux_step.cu", "cmux_step_launch",
+                  [_P, _P, _P, _P, _I, ctypes.c_uint, _I, _I, _P]),
+    "keyswitch": ("keyswitch.cu", "keyswitch_launch",
+                  [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+}
+
+_lock = threading.Lock()
+_loaded = {}
+
+
+def nvcc_path():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _library_path(name):
+    source = CSRC / KERNELS[name][0]
+    digest = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
+    return source, BUILD_DIR / ("lib%s_%s.so" % (name, digest))
+
+
+def _compile(name):
+    """Start ``nvcc`` for one kernel; returns (process, temp path, final
+    path), or None when the library is already built."""
+    source, lib = _library_path(name)
+    if lib.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", tmp, str(source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, lib
+
+
+def _finish(name, job):
+    proc, tmp, lib = job
+    log, _ = proc.communicate()
+    (BUILD_DIR / ("%s.log" % name)).write_text(log)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError("nvcc failed for %s:\n%s" % (name, log))
+    os.replace(tmp, lib)
+
+
+def build_all():
+    """Compile every kernel that is not built yet, all in parallel."""
+    with _lock:
+        jobs = {name: _compile(name) for name in KERNELS}
+        errors = []
+        for name, job in jobs.items():
+            if job is not None:
+                try:
+                    _finish(name, job)
+                except RuntimeError as exc:
+                    errors.append(str(exc))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def build_log(name):
+    """``nvcc -Xptxas -v`` output of the last build of ``name`` ('' if the
+    library was built by an earlier process)."""
+    path = BUILD_DIR / ("%s.log" % name)
+    return path.read_text() if path.exists() else ""
+
+
+def entry(name):
+    """The C entry point of kernel ``name``, building it first if needed."""
+    with _lock:
+        fn = _loaded.get(name)
+        if fn is not None:
+            return fn
+        _, lib_path = _library_path(name)
+        if not lib_path.exists():
+            job = _compile(name)
+            if job is not None:
+                _finish(name, job)
+        lib = ctypes.CDLL(str(lib_path))
+        _, symbol, argtypes = KERNELS[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+        return fn
+
+
+def check(name, code):
+    """Raise if a launcher returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError("CUDA error %d in kernel %s" % (code, name))

@@ -1,0 +1,208 @@
+"""Key objects and host key generation (``nufhe_tpu/keys.py``'s host path).
+
+Keys are generated on the host with the numpy oracles, in the reference's
+RNG call order, so one ``DeterministicRNG`` seed gives the same keys here
+and in ``nufhe_tpu``.  ``device(dev)`` prepares each key for the kernels.
+"""
+
+import numpy as np
+import torch
+
+from .numeric import Torus32, ErrorFloat
+from .params import LweParams, TLweParams, TGswParams, NuFHEParameters
+from .rng import rand_uniform_bool, rand_uniform_torus32, rand_gaussian_torus32
+from .ref import tlwe_ref, tgsw_ref, lwe_ref
+from .ops import lwe as dlwe
+from .ops import transform
+
+
+class LweKey:
+    """Binary LWE secret key.  Reference: ``nufhe/lwe.py:71-106``."""
+
+    def __init__(self, params: LweParams, key):
+        self.params = params
+        self.key = np.asarray(key, Torus32)
+
+    @classmethod
+    def from_rng(cls, params: LweParams, rng):
+        return cls(params, rand_uniform_bool(rng, (params.size,)))
+
+    @classmethod
+    def from_tlwe_key(cls, params: LweParams, tlwe_key: 'TLweKey'):
+        poly_degree = tlwe_key.params.polynomial_degree
+        mask_size = tlwe_key.params.mask_size
+        if params.size != poly_degree * mask_size:
+            raise ValueError("LWE size %d != N * mask_size" % params.size)
+        return cls(params, tlwe_key.key.ravel())
+
+
+class TLweKey:
+    """mask_size binary polynomials.  Reference: ``nufhe/tlwe.py:77-91``."""
+
+    def __init__(self, params: TLweParams, key):
+        self.params = params
+        self.key = np.asarray(key, np.int32)  # (mask_size, N)
+
+    @classmethod
+    def from_rng(cls, params: TLweParams, rng):
+        key = rand_uniform_bool(
+            rng, (params.mask_size, params.polynomial_degree))
+        return cls(params, key)
+
+
+class TGswKey:
+    """Reference: ``nufhe/tgsw.py:70-78``."""
+
+    def __init__(self, params: TGswParams, tlwe_key: TLweKey):
+        self.params = params
+        self.tlwe_key = tlwe_key
+
+    @classmethod
+    def from_rng(cls, params: TGswParams, rng):
+        return cls(params, TLweKey.from_rng(params.tlwe_params, rng))
+
+
+class BootstrapKey:
+    """n TGSW encryptions of the LWE key bits, in the coefficient domain
+    (``bk_coeff``: (n, mask_size+1, decomp_length, mask_size+1, N) int32).
+    Reference: ``nufhe/bootstrap.py:44-92``."""
+
+    def __init__(self, in_out_params: LweParams, bk_params: TGswParams,
+                 bk_coeff, cv):
+        self.in_out_params = in_out_params
+        self.bk_params = bk_params
+        self.accum_params = bk_params.tlwe_params
+        self.bk_coeff = np.asarray(bk_coeff, Torus32)
+        self.cv = np.asarray(cv, ErrorFloat)
+        self._device = {}
+
+    @classmethod
+    def from_rng(cls, rng, lwe_key: LweKey, tgsw_key: TGswKey):
+        bk_params = tgsw_key.params
+        tlwe_params = bk_params.tlwe_params
+        mask_size = tlwe_params.mask_size
+        poly_n = tlwe_params.polynomial_degree
+        noise = tlwe_params.min_noise
+        n = lwe_key.params.size
+
+        # reference call order (``nufhe/tlwe.py:185-196``): uniform mask
+        # noise first, then gaussian body noise
+        shape = (n, mask_size + 1, bk_params.decomp_length)
+        noises1 = rand_uniform_torus32(rng, shape + (mask_size, poly_n))
+        noises2 = rand_gaussian_torus32(rng, 0, noise, shape + (poly_n,))
+        a, cv = tlwe_ref.tlwe_encrypt_zero(
+            tgsw_key.tlwe_key.key, noises1, noises2, noise)
+        # message * gadget onto the diagonal (``nufhe/tgsw.py:142-161``)
+        a = tgsw_ref.tgsw_add_message(a, lwe_key.key, bk_params)
+        return cls(lwe_key.params, bk_params, a.astype(Torus32), cv)
+
+    def device(self, dev):
+        """The (n, G, O, L, R) int64 transformed key on ``dev`` (cached)."""
+        dev = torch.device(dev)
+        if dev not in self._device:
+            self._device[dev] = transform.bootstrap_key_transformed(
+                self.bk_coeff, dev, self.accum_params.transform_type)
+        return self._device[dev]
+
+
+class LweKeyswitchKey:
+    """Keyswitch key: (input_size, decomp_length, base) LWE samples.
+
+    Reference: ``nufhe/lwe.py:254-308``.
+    """
+
+    def __init__(self, ks_a, ks_b, ks_cv, log2_base: int):
+        self.ks_a = np.asarray(ks_a, Torus32)
+        self.ks_b = np.asarray(ks_b, Torus32)
+        self.ks_cv = np.asarray(ks_cv, ErrorFloat)
+        self.input_size = self.ks_a.shape[0]
+        self.decomp_length = self.ks_a.shape[1]
+        self.output_size = self.ks_a.shape[-1]
+        self.log2_base = log2_base
+        self._device = {}
+
+    @classmethod
+    def from_tgsw_key(cls, rng, ks_decomp_length: int, ks_log2_base: int,
+                      lwe_key: LweKey, tgsw_key: TGswKey):
+        extract_params = tgsw_key.params.tlwe_params.extracted_lweparams
+        in_key = LweKey.from_tlwe_key(extract_params, tgsw_key.tlwe_key)
+        out_key = lwe_key
+        input_size = in_key.params.size
+        output_size = out_key.params.size
+        noise = out_key.params.min_noise
+        base = 2**ks_log2_base
+
+        # reference order (``nufhe/lwe.py:285-288``): centred gaussian
+        # b-noise first, then uniform a-noise
+        noises_b = rand_gaussian_torus32(
+            rng, 0, noise, (input_size, ks_decomp_length, base - 1),
+            centered=True)
+        noises_a = rand_uniform_torus32(
+            rng, (input_size, ks_decomp_length, base - 1, output_size))
+        ks_a, ks_b, ks_cv = lwe_ref.make_keyswitch_key(
+            in_key.key, out_key.key, noises_a, noises_b,
+            ks_decomp_length, ks_log2_base, noise)
+        return cls(ks_a, ks_b, ks_cv, ks_log2_base)
+
+    def device(self, dev):
+        """``(arrays, meta)`` of ``ops/lwe.prepare_keyswitch_device`` on
+        ``dev`` (cached)."""
+        dev = torch.device(dev)
+        if dev not in self._device:
+            self._device[dev] = dlwe.prepare_keyswitch_device(
+                self.ks_a, self.ks_b, self.ks_cv, self.log2_base, dev)
+        return self._device[dev]
+
+
+class NuFHESecretKey:
+    """Reference: ``nufhe/api_low_level.py:90-154``."""
+
+    def __init__(self, params: NuFHEParameters, lwe_key: LweKey):
+        self.params = params
+        self.lwe_key = lwe_key
+
+    @classmethod
+    def from_rng(cls, params: NuFHEParameters, rng):
+        return cls(params, LweKey.from_rng(params.in_out_params, rng))
+
+
+class NuFHECloudKey:
+    """Reference: ``nufhe/api_low_level.py:157-239``."""
+
+    def __init__(self, params: NuFHEParameters,
+                 bootstrap_key: BootstrapKey, keyswitch_key: LweKeyswitchKey):
+        self.params = params
+        self.bootstrap_key = bootstrap_key
+        self.keyswitch_key = keyswitch_key
+
+    @classmethod
+    def from_rng(cls, params: NuFHEParameters, rng, secret_key: NuFHESecretKey):
+        tgsw_key = TGswKey.from_rng(params.tgsw_params, rng)
+        bk = BootstrapKey.from_rng(rng, secret_key.lwe_key, tgsw_key)
+        ks = LweKeyswitchKey.from_tgsw_key(
+            rng, params.ks_decomp_length, params.ks_log2_base,
+            secret_key.lwe_key, tgsw_key)
+        return cls(params, bk, ks)
+
+
+def make_key_pair(rng, **params):
+    """Create a (secret key, cloud key) pair on the host.
+    Reference: ``nufhe/api_low_level.py:242-250``."""
+    nufhe_params = NuFHEParameters(**params)
+    secret_key = NuFHESecretKey.from_rng(nufhe_params, rng)
+    cloud_key = NuFHECloudKey.from_rng(nufhe_params, rng, secret_key)
+    return secret_key, cloud_key
+
+
+def secret_key_from_array(params: NuFHEParameters, lwe_key):
+    """A secret key holding the given (n,) binary key array."""
+    return NuFHESecretKey(params, LweKey(params.in_out_params, lwe_key))
+
+
+def cloud_key_from_arrays(params: NuFHEParameters, bk_coeff, bk_cv,
+                          ks_a, ks_b, ks_cv, log2_base: int):
+    """A cloud key holding the given numpy arrays: the coefficient-domain
+    bootstrap key and its variances, and the keyswitch key tables."""
+    bk = BootstrapKey(params.in_out_params, params.tgsw_params, bk_coeff, bk_cv)
+    ks = LweKeyswitchKey(ks_a, ks_b, ks_cv, log2_base)
+    return NuFHECloudKey(params, bk, ks)

@@ -1,0 +1,106 @@
+"""One CMUX step of the blind rotation (exact engine): kernel K1's wrapper
+and its plain PyTorch version.
+
+    acc' = acc + sum_{g=(o_in,d)} decomp_d((X^p - 1) * acc[o_in]) (*) BK[g, o_out]
+
+negacyclic in Z[X]/(N=1024), mod 2^32 — the function of the TPU kernel
+``nufhe_tpu/ops/pallas/blind_rotate.py::make_external_step_rows`` (over
+``ops/rows_engine.external_step``), in the port's own layout:
+
+- ``acc``: (B, mask1, N) int32, batch-major;
+- ``p``: (B,) int32 in [0, 2N);
+- ``key_row``: (G = mask1*l, O = mask1, L, R) int64 from
+  ``ops/transform.bootstrap_key_transformed``.
+"""
+
+import torch
+
+from ..numeric import wrap_i32
+from . import transform as tf
+
+# launches of the CUDA kernel (not of the plain version)
+launches = 0
+
+
+def _digits(acc, p, offset, log2_base, decomp_length):
+    """Rotation by (X^p - 1) and the signed gadget digits:
+    (B, mask1, N) int32 -> (B, mask1*l, N) int64, g = o_in*l + d."""
+    bsz, mask1, n = acc.shape
+    acc64 = acc.to(torch.int64)
+    c = torch.arange(n, device=acc.device)
+    src = (c[None, :] - p.to(torch.int64)[:, None]) % (2 * n)      # (B, N)
+    sign = torch.where(src >= n, -1, 1)
+    src = (src % n)[:, None, :].expand(bsz, mask1, n)
+    rot = torch.gather(acc64, 2, src) * sign[:, None, :]
+    shifted = (rot - acc64 + offset) & 0xFFFFFFFF                  # u32 value
+    base = 1 << log2_base
+    digits = [((shifted >> (32 - (d + 1) * log2_base)) & (base - 1)) - base // 2
+              for d in range(decomp_length)]
+    return torch.stack(digits, dim=2).reshape(bsz, mask1 * decomp_length, n)
+
+
+def cmux_step_plain(acc, p, key_row, *, offset, log2_base):
+    """Plain PyTorch version of K1; any device.  The transform-domain MAC is
+    a broadcast multiply-sum in int64 (no value passes 2^58), reduced mod
+    2^38 before the inverse."""
+    g_size, o_size = key_row.shape[:2]
+    decomp_length = g_size // acc.shape[1]
+    dig = _digits(acc, p, int(offset), log2_base, decomp_length)
+    dhat = tf.forward(dig)                                   # (B, G, L, R)
+
+    # kexp[g, o, t, k, u] = key[g, o, t, (k - u) % R] * (-1 if u > k)
+    k = torch.arange(tf.R, device=acc.device)
+    idx = (k[:, None] - k[None, :]) % tf.R
+    sgn = torch.where(k[None, :] > k[:, None], -1, 1).to(torch.int64)
+    kexp = key_row[..., idx] * sgn                           # (G, O, L, R, R)
+    out = torch.zeros((acc.shape[0], o_size, tf.L, tf.R), dtype=torch.int64,
+                      device=acc.device)
+    for u in range(tf.R):
+        term = dhat[:, :, None, :, u, None] * kexp[None, ..., u]
+        out += term.sum(dim=1)
+    out &= (1 << tf.KEY_BITS) - 1
+    coeffs = tf.inverse_unscaled(out)                        # (B, O, N)
+    delta = (coeffs >> tf.INV_SHIFT) & 0xFFFFFFFF
+    return wrap_i32(acc.to(torch.int64) + delta)
+
+
+def _check(acc, p, key_row):
+    if acc.dtype != torch.int32 or p.dtype != torch.int32 \
+            or key_row.dtype != torch.int64:
+        raise TypeError("cmux_step takes int32 acc/p and an int64 key row")
+    if acc.dim() != 3 or acc.shape[1:] != (2, tf.N):
+        raise ValueError("acc must be (B, 2, 1024), got %s" % (tuple(acc.shape),))
+    if p.shape != (acc.shape[0],):
+        raise ValueError("p must be (B,), got %s" % (tuple(p.shape),))
+    if key_row.shape != (4, 2, tf.L, tf.R):
+        raise ValueError("key row must be (4, 2, 64, 32), got %s"
+                         % (tuple(key_row.shape),))
+    if not (acc.device == p.device == key_row.device):
+        raise ValueError("acc, p and key row must be on one device")
+
+
+def cmux_step(acc, p, key_row, *, offset, log2_base):
+    """K1: one CMUX step.  A CUDA tensor runs the kernel; a CPU tensor the
+    plain version."""
+    global launches
+    _check(acc, p, key_row)
+    if acc.device.type == 'cpu':
+        return cmux_step_plain(acc, p, key_row, offset=offset,
+                               log2_base=log2_base)
+    if acc.device.type != 'cuda':
+        raise ValueError("cmux_step runs on CUDA or CPU, not %s" % acc.device)
+    if not (acc.is_contiguous() and p.is_contiguous()
+            and key_row.is_contiguous()):
+        raise ValueError("cmux_step takes contiguous tensors")
+    if not 1 <= log2_base <= 16:
+        raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
+    from ..kernels import build
+    fn = build.entry("cmux_step")
+    out = torch.empty_like(acc)
+    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), key_row.data_ptr(),
+              acc.shape[0], int(offset) & 0xFFFFFFFF, int(log2_base),
+              acc.device.index, stream)
+    build.check("cmux_step", code)
+    launches += 1
+    return out

@@ -1,0 +1,129 @@
+"""LWE operations in PyTorch (``nufhe_tpu/ops/lwe.py``'s counterpart).
+
+The elementwise ops are plain tensor code; the keyswitch runs kernel K2
+(``ops/keyswitch.py``) on a CUDA tensor.
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..numeric import wrap_i32
+from . import keyswitch as ks
+
+
+class KeyswitchMeta(NamedTuple):
+    """Static keyswitch configuration."""
+    base: int
+    decomp_length: int
+    log2_base: int
+    input_size: int
+    output_size: int
+
+
+def lwe_encrypt(messages, key, noises_a, noises_b, noise: float):
+    """b = message + noise_b + a.s; a = uniform noise (all int32 tensors).
+
+    Reference kernel: ``nufhe/lwe_gpu.py:186-243``.
+    """
+    a = noises_a.to(torch.int32)
+    dot = (a.to(torch.int64) * key.to(torch.int64)).sum(-1)
+    b = wrap_i32(messages.to(torch.int64) + noises_b.to(torch.int64) + dot)
+    cv = torch.full(b.shape, noise**2, dtype=torch.float32, device=b.device)
+    return a, b, cv
+
+
+def lwe_decrypt_phase(a, b, key):
+    """phase = b - a.s.  Reference kernel: ``nufhe/lwe_gpu.py:246-284``."""
+    dot = (a.to(torch.int64) * key.to(torch.int64)).sum(-1)
+    return wrap_i32(b.to(torch.int64) - dot)
+
+
+def lwe_linear(source, p, add_to=None):
+    """result (+)= p * source, on (a, b, cv) triples.
+
+    Reference kernel: ``nufhe/lwe_gpu.py:287-316``.
+    """
+    sa, sb, scv = source
+    ra = sa.to(torch.int64) * int(p)
+    rb = sb.to(torch.int64) * int(p)
+    rcv = torch.tensor(float(p), dtype=torch.float32) ** 2 * scv
+    if add_to is not None:
+        aa, ab, acv = add_to
+        ra, rb, rcv = aa.to(torch.int64) + ra, ab.to(torch.int64) + rb, acv + rcv
+    return wrap_i32(ra), wrap_i32(rb), rcv.to(torch.float32)
+
+
+def lwe_noiseless_trivial(mus, lwe_size: int):
+    """(0, mu).  Reference kernel: ``nufhe/lwe_gpu.py:319-344``."""
+    mus = mus.to(torch.int32)
+    a = torch.zeros(mus.shape + (lwe_size,), dtype=torch.int32, device=mus.device)
+    cv = torch.zeros(mus.shape, dtype=torch.float32, device=mus.device)
+    return a, mus, cv
+
+
+def prepare_keyswitch_device(ks_a, ks_b, ks_cv, log2_base: int, device):
+    """Pack the keyswitch key into K2's table.
+
+    :param ks_a: (in_size, l, base, out) int32 numpy; ``ks_b``: (in_size, l,
+        base); ``ks_cv``: (in_size, l, base) float32.
+    :returns: ``(arrays, meta)``: ``arrays['table']`` is the (rows, base-1,
+        out+1) int32 tensor of [a | b] entries for digits 1..base-1 in
+        l-major row order (r = j * in_size + i); digit 0's entries are the
+        trivial zero encryption and are dropped.  ``arrays['cv_scale']`` is
+        the variance of one nonzero-digit entry.
+    """
+    ks_a, ks_b, ks_cv = (np.asarray(x) for x in (ks_a, ks_b, ks_cv))
+    input_size, decomp_length, base, output_size = ks_a.shape
+    if log2_base >= 8:
+        raise ValueError("ks_log2_base must be < 8, got %d" % log2_base)
+    if base != 2 ** log2_base:
+        raise ValueError("key has base %d, log2_base is %d" % (base, log2_base))
+
+    # the count column stands in for the per-entry variance sum, which holds
+    # only while every nonzero-digit entry has the same variance
+    nz = ks_cv[:, :, 1:]
+    cv_scale = float(nz.max())
+    if cv_scale > 0 and nz.min() < cv_scale * (1 - 1e-6):
+        raise ValueError(
+            "keyswitch cv table is not constant on nonzero digits; the "
+            "count-based cv does not apply")
+
+    ab = np.concatenate([ks_a, ks_b[..., None]], axis=-1)   # (in, l, base, out+1)
+    ab = ab.transpose(1, 0, 2, 3)[:, :, 1:]                 # (l, in, base-1, out+1)
+    table = np.ascontiguousarray(
+        ab.reshape(decomp_length * input_size, base - 1, output_size + 1),
+        dtype=np.int32)
+    arrays = dict(table=torch.from_numpy(table).to(device), cv_scale=cv_scale)
+    meta = KeyswitchMeta(base=base, decomp_length=decomp_length,
+                         log2_base=log2_base, input_size=input_size,
+                         output_size=output_size)
+    return arrays, meta
+
+
+def lwe_keyswitch(ks_arrays, ks_meta: KeyswitchMeta, source_a, source_b,
+                  source_cv=None):
+    """result = (0, b) - sum_{l,j} KS[l, j, digit_{l,j}].
+
+    :param source_a: (batch..., input_size) int32; ``source_b``: (batch...,).
+    :param source_cv: optional (batch...,) input variances, added to the
+        keyswitch noise (the reference drops them, ``nufhe/lwe.py:319``).
+    :returns: (a, b, cv) in the output LWE space.
+    """
+    out_size = ks_meta.output_size
+    batch_shape = source_b.shape
+    a2 = source_a.reshape(-1, ks_meta.input_size).contiguous()
+    totals = ks.keyswitch_totals(
+        a2, ks_arrays["table"], decomp_length=ks_meta.decomp_length,
+        log2_base=ks_meta.log2_base)
+    result_a = wrap_i32(-totals[:, :out_size].to(torch.int64))
+    result_b = wrap_i32(source_b.reshape(-1).to(torch.int64)
+                        - totals[:, out_size].to(torch.int64))
+    result_cv = (totals[:, out_size + 1].to(torch.float32)
+                 * torch.tensor(ks_arrays["cv_scale"], dtype=torch.float32))
+    result_cv = result_cv.reshape(batch_shape)
+    if source_cv is not None:
+        result_cv = result_cv + source_cv.to(torch.float32)
+    return (result_a.reshape(batch_shape + (out_size,)),
+            result_b.reshape(batch_shape), result_cv)
