@@ -10,25 +10,37 @@ and prints no result line):
 2. build every kernel from ``nufhe_tpu_torch/kernels/csrc`` (one ``nvcc``
    per source, all at once) and print ``ptxas``'s register/spill lines;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   at the small shapes and at the main path's shape (batch 4096);
-4. the main path at the default parameters (n=500, N=1024, exact engine):
-   host keygen from a seed, encrypt 4096 random bit pairs, ``gate_nand`` on
-   the card, decrypt against the truth table, the largest phase error, the
-   launch counts (500 CMUX steps and 1 keyswitch per gate, counted from 0
-   just before the gate), and the card's output for 8 of the pairs against
-   the same gate run on the CPU through the plain versions;
-5. timing at batch 2^14: warm NAND ms/bit, and each kernel's ms per launch
-   beside its plain version, a PyTorch library call where one computes the
-   same function, and its bound;
+   at a small batch and at the gate paths' batch (4096): K1 (CMUX step) with
+   the exact and the rounded key, K2 (keyswitch), and K3 (chunked rotation,
+   4 steps from step 2, both key forms) also against 4 K1 launches;
+4. the gate paths at the default parameters (n=500, N=1024), on 4096
+   random inputs, through the entry points, each with the launch counts set
+   to 0 just before the gate and read just after:
+   - the default path, ``VirtualMachine(cloud)`` with no performance
+     parameters: NAND through 10 K3 launches of 50 steps and 1 K2;
+   - the same NAND with the rounded-key ('FFT') engine, its cloud key built
+     from the same keygen arrays: 10 K3 and 1 K2;
+   - MUX on the default path: one rotation over 8192 samples, 10 K3, 1 K2;
+   - the per-step path, ``PerformanceParameters(chunk_steps=1)``: NAND
+     through 500 K1 launches and 1 K2;
+   each decrypts to its truth table and prints its largest phase error;
+   the two NANDs of the default path also equal the same gate run on the
+   CPU through the plain versions on 8 of the inputs, bit for bit;
+5. timing at batch 2^14: warm ms/bit of the NAND in both engines on the
+   default path and on the per-step path, and of MUX; each kernel's ms per
+   launch beside its plain version, a PyTorch library call where one
+   computes the same function, and its bound;
 6. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over 67e12/s.
-Both kernels do 64-bit or 32-bit integer arithmetic outside the tensor
+The kernels do 64-bit or 32-bit integer arithmetic outside the tensor
 cores, for which the H100 data sheet states no rate; 67e12/s, its float32
 rate outside the tensor cores, is the highest rate it states for such
-units, so the bound is a least time.
+units, so the bound is a least time.  A kernel's ``launches`` in the JSON
+line is its count in the gate of the path that runs it (K1: the per-step
+path; K2 and K3: the default path).
 """
 
 import json
@@ -45,6 +57,9 @@ OPS_PER_S = 67e12
 SEED = 2026
 MAIN_BATCH = 4096
 TIMING_BATCH = 1 << 14
+N_LWE = 500                # n: the blind rotation's steps
+CHUNK = 50                 # the default path's steps per K3 launch
+KERNEL_NAMES = ("cmux_step", "keyswitch", "blind_rotate_chunk")
 
 
 def nvidia_smi_line():
@@ -73,18 +88,47 @@ def bound_ms(n_bytes, n_ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def cmux_ops(batch):
+    """Integer operations of one CMUX step on ``batch`` samples: two per
+    64-bit multiply-add of the MAC, plus the transform adds."""
+    macs = batch * 64 * 2 * 32 * 32 * 4
+    transform_adds = batch * (4 + 2) * 6 * 32 * 32 * 2
+    return 2 * macs + transform_adds
+
+
 def max_abs_err(x, y):
     return int((x.to(torch.int64) - y.to(torch.int64)).abs().max().item())
 
 
-def cmux_inputs(rng, batch, dev, tp):
+def counters():
+    from nufhe_tpu_torch.ops import blind_rotate, cmux, keyswitch
+    return {"cmux_step": cmux, "keyswitch": keyswitch,
+            "blind_rotate_chunk": blind_rotate}
+
+
+def reset_counts():
+    for mod in counters().values():
+        mod.launches = 0
+
+
+def read_counts():
+    return {name: mod.launches for name, mod in counters().items()}
+
+
+def random_key(rng, rows, tp, dev, transform_type):
     from nufhe_tpu_torch.ops import transform as tf
-    acc = torch.from_numpy(
+    bk = rng.randint(-2**31, 2**31,
+                     (rows, 2, tp.decomp_length, 2, 1024)).astype(np.int32)
+    return tf.bootstrap_key_transformed(bk, dev, transform_type)
+
+
+def random_acc(rng, batch, dev):
+    return torch.from_numpy(
         rng.randint(-2**31, 2**31, (batch, 2, 1024)).astype(np.int32)).to(dev)
-    p = torch.from_numpy(rng.randint(0, 2048, (batch,)).astype(np.int32)).to(dev)
-    bk = rng.randint(-2**31, 2**31, (1, 2, tp.decomp_length, 2, 1024)).astype(np.int32)
-    key_row = tf.bootstrap_key_transformed(bk, dev)[0].contiguous()
-    return acc, p, key_row
+
+
+def random_powers(rng, shape, dev):
+    return torch.from_numpy(rng.randint(0, 2048, shape).astype(np.int32)).to(dev)
 
 
 def keyswitch_inputs(rng, batch, dev):
@@ -101,141 +145,238 @@ def keyswitch_inputs(rng, batch, dev):
     return a, arrays["table"], meta
 
 
+def record_err(results, name, label, err):
+    print("%s: max_abs_err %d" % (label, err))
+    if err:
+        raise AssertionError("%s disagrees" % label)
+    results[name]["max_abs_err"] = max(results[name].get("max_abs_err", 0), err)
+
+
 def check_kernels(nft, dev, rng, results):
-    from nufhe_tpu_torch.ops import cmux, keyswitch as ks
+    from nufhe_tpu_torch.ops import blind_rotate as brc, cmux, keyswitch as ks
     tp = nft.NuFHEParameters().tgsw_params
     kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
-    for batch in (64, MAIN_BATCH):
-        acc, p, key_row = cmux_inputs(rng, batch, dev, tp)
-        got = cmux.cmux_step(acc, p, key_row, **kw)
-        want = cmux.cmux_step_plain(acc, p, key_row, **kw)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        print("K1 cmux_step vs plain, batch %d: max_abs_err %d" % (batch, err))
-        if err:
-            raise AssertionError("K1 disagrees with its plain version")
-        results["cmux_step"]["max_abs_err"] = max(
-            results["cmux_step"].get("max_abs_err", 0), err)
+    for mode in ("NTT", "FFT"):
+        for batch in (64, MAIN_BATCH):
+            acc, p = random_acc(rng, batch, dev), random_powers(rng, (batch,), dev)
+            key_row = random_key(rng, 1, tp, dev, mode)[0].contiguous()
+            got = cmux.cmux_step(acc, p, key_row, **kw)
+            want = cmux.cmux_step_plain(acc, p, key_row, **kw)
+            torch.cuda.synchronize()
+            record_err(results, "cmux_step", "K1 cmux_step %s vs plain, batch %d"
+                       % (mode, batch), max_abs_err(got, want))
     for batch in (256, MAIN_BATCH):
         a, table, meta = keyswitch_inputs(rng, batch, dev)
         kkw = dict(decomp_length=meta.decomp_length, log2_base=meta.log2_base)
         got = ks.keyswitch_totals(a, table, **kkw)
         want = ks.keyswitch_totals_plain(a, table, **kkw)
         torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        print("K2 keyswitch vs plain, batch %d: max_abs_err %d" % (batch, err))
-        if err:
-            raise AssertionError("K2 disagrees with its plain version")
-        results["keyswitch"]["max_abs_err"] = max(
-            results["keyswitch"].get("max_abs_err", 0), err)
+        record_err(results, "keyswitch", "K2 keyswitch vs plain, batch %d"
+                   % batch, max_abs_err(got, want))
+    steps, start, chunk = 8, 2, 4
+    for mode in ("NTT", "FFT"):
+        key = random_key(rng, steps, tp, dev, mode)
+        for batch in (64, MAIN_BATCH):
+            acc = random_acc(rng, batch, dev)
+            bara_t = random_powers(rng, (steps, batch), dev)
+            got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk, **kw)
+            want = brc.blind_rotate_chunk_plain(acc, bara_t, key, start, chunk,
+                                                **kw)
+            by_k1 = acc
+            for i in range(start, start + chunk):
+                by_k1 = cmux.cmux_step(by_k1, bara_t[i], key[i], **kw)
+            torch.cuda.synchronize()
+            record_err(results, "blind_rotate_chunk",
+                       "K3 blind_rotate_chunk %s vs plain, batch %d, steps "
+                       "[%d, %d)" % (mode, batch, start, start + chunk),
+                       max_abs_err(got, want))
+            record_err(results, "blind_rotate_chunk",
+                       "K3 blind_rotate_chunk %s vs %d K1 launches, batch %d"
+                       % (mode, chunk, batch), max_abs_err(got, by_k1))
 
 
-def main_path(nft, dev, rng):
-    """Full-parameter NAND through the entry points; returns the launch
-    counts of the gate and the keys for the timing phase."""
-    from nufhe_tpu_torch.ops import cmux, keyswitch as ks
-    t0 = time.time()
-    secret, cloud = nft.make_key_pair(nft.DeterministicRNG(SEED))
-    print("keygen (host, n=500, N=1024): %.1f s" % (time.time() - t0))
-    vm = nft.VirtualMachine(cloud, device=dev)
-    t0 = time.time()
-    cloud.bootstrap_key.device(dev)
-    cloud.keyswitch_key.device(dev)
-    torch.cuda.synchronize()
-    print("key preparation (transform + upload): %.1f s" % (time.time() - t0))
-
-    crng = nft.DeterministicRNG(SEED + 1)
-    x = rng.randint(0, 2, MAIN_BATCH).astype(bool)
-    y = rng.randint(0, 2, MAIN_BATCH).astype(bool)
-    cx = nft.encrypt(crng, secret, x, device=dev)
-    cy = nft.encrypt(crng, secret, y, device=dev)
-
-    torch.cuda.synchronize()
-    cmux.launches = 0
-    ks.launches = 0
-    t0 = time.time()
-    out = vm.gate_nand(cx, cy)
-    torch.cuda.synchronize()
-    elapsed = time.time() - t0
-    counts = {"cmux_step": cmux.launches, "keyswitch": ks.launches}
-    print("main path: NAND on %d pairs in %.3f s (first call), launches %s"
-          % (MAIN_BATCH, elapsed, json.dumps(counts)))
-    if counts != {"cmux_step": 500, "keyswitch": 1}:
-        raise AssertionError("expected 500 K1 and 1 K2 launches per gate")
-
-    got = nft.decrypt(secret, out)
-    if not np.array_equal(got, ~(x & y)):
-        raise AssertionError("NAND decrypts wrong on %d of %d bits"
-                             % (int((got != ~(x & y)).sum()), MAIN_BATCH))
+def phase_error_frac(nft, secret, out, want):
+    """Largest distance of the phase from +-1/8, as a fraction of the 1/16
+    decryption margin."""
     phase = nft.decrypt_phase(secret, out).astype(np.int64)
     mu = 2**29   # 1/8 of the torus
-    want_phase = np.where(~(x & y), mu, -mu)
-    err = (phase - want_phase + 2**31) % 2**32 - 2**31
-    frac = float(np.abs(err).max()) / 2**32 / (1 / 16)
-    if not (np.isfinite(out.current_variances.cpu().numpy()).all()
-            and tuple(out.a.shape) == (MAIN_BATCH, 500)):
-        raise AssertionError("unexpected output shape or non-finite cv")
-    print("NAND decrypts to the truth table on all %d bits; largest phase "
-          "error %.6f of the 1/16 margin" % (MAIN_BATCH, frac))
+    err = (phase - np.where(want, mu, -mu) + 2**31) % 2**32 - 2**31
+    return float(np.abs(err).max()) / 2**32 / (1 / 16)
 
-    # the same gate for 8 pairs on the CPU, through the plain versions
+
+def run_gate(nft, label, secret, vm, gate, args, want, expect):
+    """One gate through the entry points with the launch counts set to 0
+    just before it and read just after; checks counts, shape, cv and the
+    truth table.  Returns the output and the counts."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    out = getattr(vm, gate)(*args)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    counts = read_counts()
+    print("%s: %s on %d inputs in %.3f s (first call), launches %s"
+          % (label, gate, len(want), elapsed, json.dumps(counts)))
+    if counts != expect:
+        raise AssertionError("%s: expected launches %s" % (label, expect))
+    if not (np.isfinite(out.current_variances.cpu().numpy()).all()
+            and tuple(out.a.shape) == (len(want), N_LWE)):
+        raise AssertionError("%s: unexpected output shape or non-finite cv"
+                             % label)
+    got = nft.decrypt(secret, out)
+    if not np.array_equal(got, want):
+        raise AssertionError("%s decrypts wrong on %d of %d bits"
+                             % (label, int((got != want).sum()), len(want)))
+    frac = phase_error_frac(nft, secret, out, want)
+    print("%s decrypts to the truth table on all %d bits; largest phase "
+          "error %.6f of the 1/16 margin" % (label, len(want), frac))
+    if not frac < 1:
+        raise AssertionError("%s: phase error beyond the margin" % label)
+    return out, counts
+
+
+def same_on_cpu(nft, label, cloud, gate, args, out):
+    """The same gate on 8 of the inputs on the CPU, through the plain
+    versions, equals the card's output bit for bit."""
     vm_cpu = nft.VirtualMachine(cloud, device="cpu")
     t0 = time.time()
     sub = [nft.LweSampleArray(c.params, c.a[:8].cpu(), c.b[:8].cpu(),
-                              c.current_variances[:8].cpu())
-           for c in (cx, cy)]
-    ref = vm_cpu.gate_nand(*sub)
+                              c.current_variances[:8].cpu()) for c in args]
+    ref = getattr(vm_cpu, gate)(*sub)
     same = (torch.equal(ref.a, out.a[:8].cpu())
             and torch.equal(ref.b, out.b[:8].cpu()))
-    print("card output vs plain CPU gate on 8 pairs: %s (%.1f s)"
-          % ("bit-equal" if same else "DIFFERENT", time.time() - t0))
+    print("%s: card output vs plain CPU gate on 8 inputs: %s (%.1f s)"
+          % (label, "bit-equal" if same else "DIFFERENT", time.time() - t0))
     if not same:
-        raise AssertionError("card NAND differs from the plain CPU NAND")
-    return counts, secret, cloud, vm
+        raise AssertionError("%s: card output differs from the plain CPU gate"
+                             % label)
 
 
-def timing(nft, dev, rng, secret, cloud, vm, results):
-    from nufhe_tpu_torch.ops import cmux, keyswitch as ks
-    crng = nft.DeterministicRNG(SEED + 2)
-    x = rng.randint(0, 2, TIMING_BATCH).astype(bool)
-    y = rng.randint(0, 2, TIMING_BATCH).astype(bool)
-    cx = nft.encrypt(crng, secret, x, device=dev)
-    cy = nft.encrypt(crng, secret, y, device=dev)
-    out = vm.gate_nand(cx, cy)                       # warm-up
+def fft_cloud(nft, cloud):
+    """The rounded-key ('FFT') cloud key from the same keygen arrays."""
+    bk, ks = cloud.bootstrap_key, cloud.keyswitch_key
+    return nft.cloud_key_from_arrays(
+        nft.NuFHEParameters(transform_type='FFT', lwe_size=N_LWE),
+        bk.bk_coeff, bk.cv,
+        ks.ks_a, ks.ks_b, ks.ks_cv, ks.log2_base)
+
+
+def gate_paths(nft, dev, rng):
+    """The gate paths at batch 4096; returns each kernel's launches and the
+    keys and machines for the timing phase."""
+    t0 = time.time()
+    secret, cloud = nft.make_key_pair(nft.DeterministicRNG(SEED), lwe_size=N_LWE)
+    cloud_fft = fft_cloud(nft, cloud)
+    print("keygen (host, n=%d, N=1024): %.1f s" % (N_LWE, time.time() - t0))
+    for c in (cloud, cloud_fft):
+        t0 = time.time()
+        c.bootstrap_key.device(dev)
+        c.keyswitch_key.device(dev)
+        torch.cuda.synchronize()
+        print("key preparation (%s: transform + upload): %.1f s"
+              % (c.params.transform_type, time.time() - t0))
+    vms = {
+        "default NTT": nft.VirtualMachine(cloud, device=dev),
+        "default FFT": nft.VirtualMachine(cloud_fft, device=dev),
+        "per-step NTT": nft.VirtualMachine(
+            cloud, nft.PerformanceParameters(chunk_steps=1), device=dev),
+    }
+    if vms["default NTT"].perf_params.chunk_steps != CHUNK:
+        raise AssertionError("the default chunk on the card is not %d" % CHUNK)
+
+    crng = nft.DeterministicRNG(SEED + 1)
+    x, y, z = (rng.randint(0, 2, MAIN_BATCH).astype(bool) for _ in range(3))
+    cx, cy, cz = (nft.encrypt(crng, secret, v, device=dev) for v in (x, y, z))
+    n_chunks = N_LWE // CHUNK
+    chunked = {"cmux_step": 0, "keyswitch": 1, "blind_rotate_chunk": n_chunks}
+    launches = {}
+    for label, c in (("default NTT", cloud), ("default FFT", cloud_fft)):
+        out, counts = run_gate(nft, label, secret, vms[label], "gate_nand",
+                               (cx, cy), ~(x & y), chunked)
+        same_on_cpu(nft, label, c, "gate_nand", (cx, cy), out)
+        launches = {k: max(launches.get(k, 0), n) for k, n in counts.items()}
+    run_gate(nft, "default NTT", secret, vms["default NTT"], "gate_mux",
+             (cx, cy, cz), np.where(x, y, z), chunked)
+    _, counts = run_gate(
+        nft, "per-step NTT", secret, vms["per-step NTT"], "gate_nand",
+        (cx, cy), ~(x & y),
+        {"cmux_step": N_LWE, "keyswitch": 1, "blind_rotate_chunk": 0})
+    launches = {k: max(launches[k], n) for k, n in counts.items()}
+    return launches, secret, cloud, cloud_fft, vms
+
+
+def gate_ms_bit(nft, secret, vm, gate, args, want):
+    out = getattr(vm, gate)(*args)                   # warm-up
     torch.cuda.synchronize()
-    if not np.array_equal(nft.decrypt(secret, out), ~(x & y)):
-        raise AssertionError("NAND at batch 2^14 decrypts wrong")
+    if not np.array_equal(nft.decrypt(secret, out), want):
+        raise AssertionError("%s at batch 2^14 decrypts wrong" % gate)
     times = []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.time()
-        vm.gate_nand(cx, cy)
+        getattr(vm, gate)(*args)
         torch.cuda.synchronize()
         times.append(time.time() - t0)
-    ms_bit = [t * 1e3 / TIMING_BATCH for t in times]
-    print("NAND warm, batch %d: %s ms/bit (gate %s s)"
-          % (TIMING_BATCH, ms_bit, times))
+    return [t * 1e3 / len(want) for t in times], times
 
-    # K1 at the timing batch: the gate's own key row and a random accumulator
+
+def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
+    from nufhe_tpu_torch.ops import blind_rotate as brc, cmux, keyswitch as ks
+    b = TIMING_BATCH
+    crng = nft.DeterministicRNG(SEED + 2)
+    x, y, z = (rng.randint(0, 2, b).astype(bool) for _ in range(3))
+    cx, cy, cz = (nft.encrypt(crng, secret, v, device=dev) for v in (x, y, z))
+    for label in ("default NTT", "default FFT", "per-step NTT"):
+        ms_bit, times = gate_ms_bit(nft, secret, vms[label], "gate_nand",
+                                    (cx, cy), ~(x & y))
+        print("%s NAND warm, batch %d: %s ms/bit (gate %s s)"
+              % (label, b, ms_bit, times))
+    ms_bit, times = gate_ms_bit(nft, secret, vms["default NTT"], "gate_mux",
+                                (cx, cy, cz), np.where(x, y, z))
+    print("default NTT MUX warm, batch %d: %s ms/bit (gate %s s)"
+          % (b, ms_bit, times))
+
+    # K1 at the timing batch: the gate's own key rows, random accumulator
     tp = cloud.params.tgsw_params
     kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
-    b = TIMING_BATCH
-    acc = torch.from_numpy(
-        rng.randint(-2**31, 2**31, (b, 2, 1024)).astype(np.int32)).to(dev)
-    p = torch.from_numpy(rng.randint(0, 2048, (b,)).astype(np.int32)).to(dev)
-    key_row = cloud.bootstrap_key.device(dev)[0]
-    cmux.cmux_step(acc, p, key_row, **kw)
-    k1_ms = cuda_ms(lambda: cmux.cmux_step(acc, p, key_row, **kw), 20)
-    k1_plain = cuda_ms(lambda: cmux.cmux_step_plain(acc, p, key_row, **kw), 2)
-    macs = b * 64 * 2 * 32 * 32 * 4
-    transform_adds = b * (4 + 2) * 6 * 32 * 32 * 2
-    k1_bound, k1_by = bound_ms(2 * acc.numel() * 4 + p.numel() * 4
-                               + key_row.numel() * 8,
-                               2 * macs + transform_adds)
-    results["cmux_step"].update(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound,
-                                bound_by=k1_by, library_ms=None)
-    print("K1 batch %d: %.4f ms/launch, plain %.2f ms, bound %.4f ms (%s)"
-          % (b, k1_ms, k1_plain, k1_bound, k1_by))
+    acc = random_acc(rng, b, dev)
+    p = random_powers(rng, (b,), dev)
+    k1_ms = {}
+    for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
+        key_row = c.bootstrap_key.device(dev)[0]
+        cmux.cmux_step(acc, p, key_row, **kw)
+        k1_ms[mode] = cuda_ms(lambda: cmux.cmux_step(acc, p, key_row, **kw), 20)
+        plain = cuda_ms(lambda: cmux.cmux_step_plain(acc, p, key_row, **kw), 2)
+        bound, by = bound_ms(2 * acc.numel() * 4 + p.numel() * 4
+                             + key_row.numel() * 8, cmux_ops(b))
+        print("K1 %s batch %d: %.4f ms/launch, plain %.2f ms, bound %.4f ms (%s)"
+              % (mode, b, k1_ms[mode], plain, bound, by))
+        if mode == "NTT":
+            results["cmux_step"].update(ms=k1_ms[mode], plain_ms=plain,
+                                        bound_ms=bound, bound_by=by,
+                                        library_ms=None)
+
+    # K3 at the timing batch and the default chunk: the gate's key, random
+    # accumulator and rotation amounts
+    bara_t = random_powers(rng, (N_LWE, b), dev)
+    for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
+        key = c.bootstrap_key.device(dev)
+        brc.blind_rotate_chunk(acc, bara_t, key, 0, CHUNK, **kw)
+        k3_ms = cuda_ms(
+            lambda: brc.blind_rotate_chunk(acc, bara_t, key, 0, CHUNK, **kw), 3)
+        plain = cuda_ms(lambda: brc.blind_rotate_chunk_plain(
+            acc, bara_t, key, 0, CHUNK, **kw), 1)
+        row_bytes = key[0].numel() * 8
+        bound, by = bound_ms(2 * acc.numel() * 4 + CHUNK * b * 4
+                             + CHUNK * row_bytes, CHUNK * cmux_ops(b))
+        print("K3 %s batch %d chunk %d: %.4f ms/launch (%d x K1 = %.4f ms, "
+              "ratio %.4f), plain %.2f ms, bound %.4f ms (%s)"
+              % (mode, b, CHUNK, k3_ms, CHUNK, CHUNK * k1_ms[mode],
+                 k3_ms / (CHUNK * k1_ms[mode]), plain, bound, by))
+        if mode == "NTT":
+            results["blind_rotate_chunk"].update(
+                ms=k3_ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None)
 
     # K2 at the timing batch: the gate's keyswitch table, random input
     ks_arrays, meta = cloud.keyswitch_key.device(dev)
@@ -271,20 +412,8 @@ def timing(nft, dev, rng, secret, cloud, vm, results):
     del onehot, table64, lib
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import nufhe_tpu_torch as nft
+def build_kernels():
     from nufhe_tpu_torch.kernels import build
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = nvidia_smi_line()
-    print("card (name, power limit): %s" % smi)
-    dev = torch.device("cuda", 0)
-    rng = np.random.RandomState(SEED)
-
     t0 = time.time()
     build.build_all()
     print("kernels built in %.1f s" % (time.time() - t0))
@@ -292,6 +421,21 @@ def main():
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print("  %s: %s" % (name, line.strip()))
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import nufhe_tpu_torch as nft
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi_line()
+    print("card (name, power limit): %s" % smi)
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(SEED)
+    build_kernels()
 
     results = {
         "cmux_step": dict(
@@ -302,18 +446,24 @@ def main():
             name="keyswitch", route="cuda",
             source="nufhe_tpu_torch/kernels/csrc/keyswitch.cu",
             replaces="nufhe_tpu/ops/pallas/keyswitch.py:27"),
+        "blind_rotate_chunk": dict(
+            name="blind_rotate_chunk", route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/blind_rotate_chunk.cu",
+            replaces="nufhe_tpu/ops/pallas/blind_rotate.py:83"),
     }
     check_kernels(nft, dev, rng, results)
 
-    counts, secret, cloud, vm = main_path(nft, dev, rng)
-    for name, n in counts.items():
+    launches, secret, cloud, cloud_fft, vms = gate_paths(nft, dev, rng)
+    for name, n in launches.items():
+        if not n:
+            raise AssertionError("kernel %s was not launched on its path" % name)
         results[name]["launches"] = n
-    timing(nft, dev, rng, secret, cloud, vm, results)
+    timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in results.values()]}))
+    print(json.dumps({"kernels": [{k: results[name][k] for k in keys}
+                                  for name in KERNEL_NAMES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

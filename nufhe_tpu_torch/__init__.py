@@ -13,6 +13,7 @@ from .keys import (
     NuFHESecretKey, NuFHECloudKey, make_key_pair, cloud_key_from_arrays,
     secret_key_from_array)
 from .ciphertext import LweSampleArray, ciphertext_from_arrays
+from .performance import PerformanceParameters
 from .api import (
     empty_ciphertext, encrypt, decrypt, decrypt_phase, VirtualMachine)
 
@@ -21,5 +22,5 @@ __all__ = [
     'NuFHECloudKey', 'make_key_pair', 'cloud_key_from_arrays',
     'secret_key_from_array', 'LweSampleArray', 'ciphertext_from_arrays',
     'empty_ciphertext', 'encrypt', 'decrypt', 'decrypt_phase',
-    'VirtualMachine',
+    'PerformanceParameters', 'VirtualMachine',
 ]

@@ -9,6 +9,7 @@ from .numeric import bool_to_t32, t32_to_bool
 from .params import NuFHEParameters
 from .keys import NuFHESecretKey, NuFHECloudKey, make_key_pair
 from .ciphertext import LweSampleArray
+from .performance import PerformanceParameters
 from .rng import rand_gaussian_torus32, rand_uniform_torus32
 from .ops import lwe as dlwe
 from .models import gates
@@ -74,15 +75,20 @@ def decrypt(key: NuFHESecretKey, ciphertext: LweSampleArray):
 class VirtualMachine:
     """Executes gates on ciphertexts with an encapsulated cloud key.
 
-    ``vm.gate_<op>(a, b, dest=None)`` mirrors the reference
-    (``nufhe/api_high_level.py:302-363``) for the ten bootstrapped
-    two-input gates.
+    ``vm.gate_<op>(*args, dest=None)`` mirrors the reference
+    (``nufhe/api_high_level.py:302-363``) for the 14 gates.
+    ``perf_params`` (a ``PerformanceParameters``; unset: the defaults) is
+    resolved for ``device`` once, here.
     """
 
-    def __init__(self, cloud_key: NuFHECloudKey, device=None):
+    def __init__(self, cloud_key: NuFHECloudKey,
+                 perf_params: PerformanceParameters = None, device=None):
+        if perf_params is None:
+            perf_params = PerformanceParameters(cloud_key.params)
         self.params = cloud_key.params
         self.cloud_key = cloud_key
         self.device = resolve_device(device)
+        self.perf_params = perf_params.for_device(self.device)
 
     def empty_ciphertext(self, shape):
         return empty_ciphertext(self.params, shape, self.device)
@@ -91,14 +97,15 @@ class VirtualMachine:
         if dest is None:
             dest = self.empty_ciphertext(
                 result_shape(*[get_shape(arg) for arg in args]))
-        getattr(gates, name)(self.cloud_key, dest, *args, device=self.device)
+        getattr(gates, name)(self.cloud_key, dest, *args, device=self.device,
+                             perf_params=self.perf_params)
         return dest
 
     def __getattr__(self, name):
-        if name in gates.GATES2:
+        if name in gates.GATES:
             return lambda *args, **kwds: self._gate(name, *args, **kwds)
         raise AttributeError(name)
 
 
 __all__ = ['empty_ciphertext', 'encrypt', 'decrypt', 'decrypt_phase',
-           'make_key_pair', 'VirtualMachine']
+           'make_key_pair', 'PerformanceParameters', 'VirtualMachine']

@@ -5,8 +5,8 @@ interface (pointers and the stream as ``c_void_p``; the launcher selects
 the device ordinal it is given, launches, and returns
 ``cudaGetLastError()``), compiled for ``sm_90a`` into ``_build/``
 (git-ignored) the first time it is needed.  The library's file name
-carries a hash of its source, so an edited source is rebuilt and a stale
-library is never loaded.
+carries a hash of its source and of the shared ``*.cuh`` headers, so an
+edited source is rebuilt and a stale library is never loaded.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all.
 """
 
@@ -27,7 +27,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNELS = {
     "cmux_step": ("cmux_step.cu", "cmux_step_launch",
-                  [_P, _P, _P, _P, _I, ctypes.c_uint, _I, _I, _P]),
+                  [_P, _P, _P, _P, _I, ctypes.c_uint, _I, _I, _I, _P]),
+    "blind_rotate_chunk": ("blind_rotate_chunk.cu", "blind_rotate_chunk_launch",
+                           [_P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _I, _I,
+                            _I, _P]),
     "keyswitch": ("keyswitch.cu", "keyswitch_launch",
                   [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
@@ -48,8 +51,10 @@ def nvcc_path():
 
 def _library_path(name):
     source = CSRC / KERNELS[name][0]
-    digest = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
-    return source, BUILD_DIR / ("lib%s_%s.so" % (name, digest))
+    digest = hashlib.sha1(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # the shared headers
+        digest.update(header.read_bytes())
+    return source, BUILD_DIR / ("lib%s_%s.so" % (name, digest.hexdigest()[:12]))
 
 
 def _compile(name):

@@ -97,7 +97,9 @@ class BootstrapKey:
         return cls(lwe_key.params, bk_params, a.astype(Torus32), cv)
 
     def device(self, dev):
-        """The (n, G, O, L, R) int64 transformed key on ``dev`` (cached)."""
+        """The transformed key on ``dev`` (cached), in the form that
+        ``transform_type`` selects: (n, G, O, L, R) int64 for 'NTT', the
+        two-sided (n, 2, G, O, L, R) for 'FFT'."""
         dev = torch.device(dev)
         if dev not in self._device:
             self._device[dev] = transform.bootstrap_key_transformed(

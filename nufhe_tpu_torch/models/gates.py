@@ -1,9 +1,10 @@
-"""The bootstrapped two-input gates (``nufhe_tpu/models/gates.py``'s
-counterpart; NOT, COPY, CONSTANT and MUX are not ported yet).
+"""The 14 homomorphic gates (``nufhe_tpu/models/gates.py``'s counterpart).
 
-Every gate is the reference pattern (``nufhe/gates.py``): a noiseless
-trivial constant plus a +-1/+-2 linear combination of the inputs, then one
-bootstrap with mu = 1/8.
+Every bootstrapped gate is the reference pattern (``nufhe/gates.py``): a
+noiseless trivial constant plus a +-1/+-2 linear combination of the inputs,
+then one bootstrap with mu = 1/8.  Each gate takes the device it runs on
+and, optionally, a ``PerformanceParametersForDevice`` (unset: the
+defaults for that device).
 
 Gate constants (reference lines):
   NAND (0, 1/8) - a - b      gates.py:110-121
@@ -16,13 +17,17 @@ Gate constants (reference lines):
   ANDYN(0,-1/8) + a - b      gates.py:502-513
   ORNY (0, 1/8) - a + b      gates.py:544-555
   ORYN (0, 1/8) + a - b      gates.py:586-597
+  NOT/COPY/CONSTANT: linear only; MUX: two no-keyswitch bootstraps run as
+  one rotation over 2B samples, a sum, one keyswitch (gates.py:600-664).
 """
 
 import numpy as np
 import torch
 
-from ..numeric import phase_to_t32, wrap_i32
+from ..numeric import bool_to_t32, phase_to_t32, wrap_i32
 from ..ops import bootstrap as dboot
+from ..ops import lwe as dlwe
+from ..performance import PerformanceParameters
 
 _MU = int(phase_to_t32(1, 8))
 
@@ -67,8 +72,18 @@ def _broadcast_flat(ct, shape, lwe_size, device):
     return a, b, cv
 
 
+def _perf_kwargs(perf_params, device):
+    """The bootstrap's knobs from ``perf_params`` (unset: the defaults for
+    ``device``)."""
+    if perf_params is None:
+        perf_params = PerformanceParameters().for_device(device)
+    return dict(chunk_steps=perf_params.chunk_steps,
+                coarse_phase_bits=perf_params.coarse_phase_bits)
+
+
 def _linear_bootstrap(inputs, const, coeffs, bk_dev, ks_arrays, *, mu,
-                      tgsw_params, ks_meta):
+                      tgsw_params, ks_meta, chunk_steps=1,
+                      coarse_phase_bits=0):
     """temp = (0, const) + sum_i coeffs[i] * inputs[i]; bootstrap(temp)."""
     ta = torch.zeros_like(inputs[0][0], dtype=torch.int64)
     tb = torch.full(inputs[0][1].shape, int(const), dtype=torch.int64,
@@ -80,10 +95,20 @@ def _linear_bootstrap(inputs, const, coeffs, bk_dev, ks_arrays, *, mu,
         tcv = tcv + torch.tensor(float(c), dtype=torch.float32) ** 2 * icv
     return dboot.bootstrap_device(
         wrap_i32(ta), wrap_i32(tb), bk_dev, ks_arrays, ks_meta, mu,
-        tgsw_params)
+        tgsw_params, chunk_steps=chunk_steps,
+        coarse_phase_bits=coarse_phase_bits)
 
 
-def _bootstrap_gate(cloud_key, result, sources, const, coeffs, device):
+def _store(result, shape, ra, rb, rcv):
+    out_size = ra.shape[-1]
+    result.a = ra.reshape(shape + (out_size,))
+    result.b = rb.reshape(shape)
+    result.current_variances = rcv.reshape(shape)
+    return result
+
+
+def _bootstrap_gate(cloud_key, result, sources, const, coeffs, device,
+                    perf_params=None):
     params = cloud_key.params
     lwe_size = params.in_out_params.size
     shape = tuple(result.shape)
@@ -92,20 +117,17 @@ def _bootstrap_gate(cloud_key, result, sources, const, coeffs, device):
     ks_arrays, ks_meta = cloud_key.keyswitch_key.device(device)
     ra, rb, rcv = _linear_bootstrap(
         inputs, const, coeffs, cloud_key.bootstrap_key.device(device),
-        ks_arrays, mu=_MU, tgsw_params=params.tgsw_params, ks_meta=ks_meta)
-    out_size = ra.shape[-1]
-    result.a = ra.reshape(shape + (out_size,))
-    result.b = rb.reshape(shape)
-    result.current_variances = rcv.reshape(shape)
-    return result
+        ks_arrays, mu=_MU, tgsw_params=params.tgsw_params, ks_meta=ks_meta,
+        **_perf_kwargs(perf_params, device))
+    return _store(result, shape, ra, rb, rcv)
 
 
 def _make_gate2(name, const_num, const_den, ca, cb, doc):
-    def gate(cloud_key, result, a, b, device):
+    def gate(cloud_key, result, a, b, device, perf_params=None):
         check_shape(result, a, b)
         return _bootstrap_gate(
             cloud_key, result, (a, b), phase_to_t32(const_num, const_den),
-            (ca, cb), device)
+            (ca, cb), device, perf_params)
     gate.__name__ = name
     gate.__doc__ = doc
     return gate
@@ -130,3 +152,83 @@ for _name, (_num, _den, _ca, _cb) in GATES2.items():
         _name, _num, _den, _ca, _cb,
         "Bootstrapped %s: (0, %d/%d) %+d*a %+d*b."
         % (_name[5:].upper(), _num, _den, _ca, _cb))
+
+
+# --- linear gates ---
+
+def _linear_gate(result, source, coeff, device):
+    """result = coeff * source (broadcast); no bootstrap."""
+    shape = tuple(result.shape)
+    lwe_size = source.a.shape[-1]
+    src = (source.a.to(device).broadcast_to(shape + (lwe_size,)),
+           source.b.to(device).broadcast_to(shape),
+           source.current_variances.to(device).broadcast_to(shape))
+    result.a, result.b, result.current_variances = dlwe.lwe_linear(src, coeff)
+    return result
+
+
+def gate_not(cloud_key, result, a, device, perf_params=None):
+    """Homomorphic NOT (negation; not bootstrapped).
+    Reference: nufhe/gates.py:292-317."""
+    check_shape(result, a)
+    return _linear_gate(result, a, -1, device)
+
+
+def gate_copy(cloud_key, result, a, device, perf_params=None):
+    """Copy a ciphertext (not bootstrapped).
+    Reference: nufhe/gates.py:320-344."""
+    check_shape(result, a)
+    return _linear_gate(result, a, 1, device)
+
+
+def gate_constant(cloud_key, result, vals, device, perf_params=None):
+    """Trivial (noiseless) encryption of plaintext bits.
+    Reference: nufhe/gates.py:352-387."""
+    mus = bool_to_t32(np.asarray(vals))
+    check_shape(result, mus)
+    shape = tuple(result.shape)
+    mus_dev = torch.from_numpy(np.ascontiguousarray(mus)).to(device)
+    result.a, result.b, result.current_variances = dlwe.lwe_noiseless_trivial(
+        mus_dev.broadcast_to(shape).contiguous(), result.params.size)
+    return result
+
+
+# --- MUX ---
+
+def _i64(x):
+    return x.to(torch.int64)
+
+
+def gate_mux(cloud_key, result, a, b, c, device, perf_params=None):
+    """Bootstrapped MUX: b if a else c.  Two keyswitch-free bootstraps,
+    u1 = BS((0,-1/8) + a + b) and u2 = BS((0,-1/8) - a + c), run as one
+    blind rotation over 2B samples (the reference runs them one after the
+    other, nufhe/gates.py:638-655); then (0, 1/8) + u1 + u2 in the
+    extracted space and one keyswitch.  Reference: nufhe/gates.py:600-664.
+    """
+    check_shape(result, a, b, c)
+    params = cloud_key.params
+    lwe_size = params.in_out_params.size
+    shape = tuple(result.shape)
+    (aa, ab, _), (ba, bb, _), (ca, cb, _) = (
+        _broadcast_flat(src, shape, lwe_size, device) for src in (a, b, c))
+    and_const = int(phase_to_t32(-1, 8))
+    mux_const = int(phase_to_t32(1, 8))
+    bsz = ab.shape[0]
+    lwe_a = wrap_i32(torch.cat([_i64(aa) + _i64(ba), _i64(ca) - _i64(aa)]))
+    lwe_b = wrap_i32(torch.cat([and_const + _i64(ab) + _i64(bb),
+                                and_const - _i64(ab) + _i64(cb)]))
+    ks_arrays, ks_meta = cloud_key.keyswitch_key.device(device)
+    ex_a, ex_b, ex_cv = dboot.bootstrap_device(
+        lwe_a, lwe_b, cloud_key.bootstrap_key.device(device), ks_arrays,
+        ks_meta, _MU, params.tgsw_params, no_keyswitch=True,
+        **_perf_kwargs(perf_params, device))
+    ta = wrap_i32(_i64(ex_a[:bsz]) + _i64(ex_a[bsz:]))
+    tb = wrap_i32(mux_const + _i64(ex_b[:bsz]) + _i64(ex_b[bsz:]))
+    ra, rb, rcv = dlwe.lwe_keyswitch(ks_arrays, ks_meta, ta, tb,
+                                     source_cv=ex_cv[:bsz] + ex_cv[bsz:])
+    return _store(result, shape, ra, rb, rcv)
+
+
+# the gates a VirtualMachine dispatches by name
+GATES = tuple(GATES2) + ('gate_not', 'gate_copy', 'gate_constant', 'gate_mux')

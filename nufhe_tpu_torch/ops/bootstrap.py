@@ -1,10 +1,12 @@
 """Gate bootstrap in PyTorch: modulus switch, blind rotation, extraction,
-keyswitch (``nufhe_tpu/ops/bootstrap.py``'s counterpart, exact engine,
-one CMUX step per launch).
+keyswitch (``nufhe_tpu/ops/bootstrap.py``'s counterpart), in both engine
+modes.  The blind rotation runs ``n / chunk_steps`` launches of the chunked
+kernel K3 when the chunk divides n, else n launches of the step kernel K1.
 """
 
 import torch
 
+from . import blind_rotate as brc
 from . import cmux
 from . import lwe as dlwe
 from . import tlwe as dtlwe
@@ -21,29 +23,58 @@ def t32_to_phase(phase, mspace_size: int):
     return (((phase_u + half) & 0xFFFFFFFF) // interv).to(torch.int32)
 
 
-def blind_rotate(accum_a, bk_dev, bara, tgsw_params):
-    """ACC <- BK_i (x) [(X^{bara_i}-1) ACC] + ACC over all n key bits, one
-    K1 launch per step.
+def round_phase_coarse(bara, bits: int, n_poly: int):
+    """Coarse modulus switch: round [0, 2N) rotation amounts to multiples
+    of 2^bits with a zero-mean tie rule (an exact tie goes the way of the
+    next-higher phase bit), wrapping mod 2N.  The extra phase noise is
+    tracked in ``blind_rotate_variance(coarse_phase_bits=bits)``.  The
+    kernels rotate by direct index, so the rounding saves them nothing; it
+    is kept so that the port computes the JAX package's function."""
+    if not bits:
+        return bara
+    step = 1 << bits
+    half = step >> 1
+    rem = bara & (step - 1)
+    up = (rem > half) | ((rem == half) & (((bara >> bits) & 1) == 1))
+    out = bara - rem + torch.where(up, step, 0).to(bara.dtype)
+    return (out & (2 * n_poly - 1)).to(torch.int32)
+
+
+def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
+                 exact=True):
+    """ACC <- BK_i (x) [(X^{bara_i}-1) ACC] + ACC over all n key bits.
 
     :param accum_a: (B, mask_size+1, N) int32.
-    :param bk_dev: (n, G, O, L, R) int64 transformed key
-        (``ops/transform.bootstrap_key_transformed``).
+    :param bk_dev: transformed key (``ops/transform.bootstrap_key_transformed``):
+        (n, G, O, L, R) int64 when ``exact``, else (n, 2, G, O, L, R).
     :param bara: (B, n) int32 in [0, 2N).
+    :param chunk_steps: steps per K3 launch; 1, or a chunk that does not
+        divide n, runs one K1 launch a step.
     """
-    offset = int(tgsw_params.offset)
-    log2_base = tgsw_params.bs_log2_base
+    n = bara.shape[-1]
+    if cmux.check_key(bk_dev, (n,), "blind_rotate") == exact:
+        raise ValueError("the key's form does not match the %s engine"
+                         % ("exact" if exact else "rounded-key"))
+    kw = dict(offset=int(tgsw_params.offset),
+              log2_base=tgsw_params.bs_log2_base)
     acc = accum_a.contiguous()
     bara_t = bara.t().contiguous()              # (n, B): one row per step
-    for i in range(bara.shape[-1]):
-        acc = cmux.cmux_step(acc, bara_t[i], bk_dev[i], offset=offset,
-                             log2_base=log2_base)
+    chunk = int(chunk_steps)
+    if chunk > 1 and n % chunk == 0:
+        for start in range(0, n, chunk):
+            acc = brc.blind_rotate_chunk(acc, bara_t, bk_dev, start, chunk, **kw)
+    else:
+        for i in range(n):
+            acc = cmux.cmux_step(acc, bara_t[i], bk_dev[i], **kw)
     return acc
 
 
 def bootstrap_device(lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, mu,
-                     tgsw_params, no_keyswitch=False):
+                     tgsw_params, no_keyswitch=False, chunk_steps=1,
+                     coarse_phase_bits=0):
     """Full gate bootstrap: LWE(mu) if phase > 0 else LWE(-mu), fresh noise.
-    Reference: ``nufhe/bootstrap.py:154-229``.
+    Reference: ``nufhe/bootstrap.py:154-229``.  The engine mode comes from
+    ``tgsw_params.tlwe_params.transform_type``.
 
     :param lwe_a: (B, n_in) int32; ``lwe_b``: (B,) int32.
     :returns: (a, b, cv) in the keyswitched (or extracted) LWE space.
@@ -51,9 +82,11 @@ def bootstrap_device(lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, mu,
     tlwe_params = tgsw_params.tlwe_params
     n_poly = tlwe_params.polynomial_degree
     mask_size = tlwe_params.mask_size
+    exact = tlwe_params.transform_type != 'FFT'
 
     barb = t32_to_phase(lwe_b, 2 * n_poly)
     bara = t32_to_phase(lwe_a, 2 * n_poly)
+    bara = round_phase_coarse(bara, coarse_phase_bits, n_poly)
 
     # testvector = X^{2N - barb} * (mu, ..., mu): for a constant vector the
     # shift is a sign pattern, +mu iff (k + barb) mod 2N < N
@@ -63,11 +96,13 @@ def bootstrap_device(lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, mu,
     testvect = torch.where(pos < n_poly, mu_t, -mu_t)
 
     accum, _ = dtlwe.tlwe_noiseless_trivial(testvect, mask_size)
-    accum = blind_rotate(accum, bk_dev, bara, tgsw_params)
+    accum = blind_rotate(accum, bk_dev, bara, tgsw_params,
+                         chunk_steps=chunk_steps, exact=exact)
     ex_a, ex_b = dtlwe.tlwe_extract_lwe_samples(accum)
 
     # fresh-noise estimate through the blind rotation (CGGI16 bound)
-    var_br = blind_rotate_variance(tgsw_params, lwe_a.shape[-1])
+    var_br = blind_rotate_variance(tgsw_params, lwe_a.shape[-1], exact=exact,
+                                   coarse_phase_bits=coarse_phase_bits)
     ex_cv = torch.full(ex_b.shape, var_br, dtype=torch.float32,
                        device=ex_b.device)
     if no_keyswitch:

@@ -1,5 +1,5 @@
-"""One CMUX step of the blind rotation (exact engine): kernel K1's wrapper
-and its plain PyTorch version.
+"""One CMUX step of the blind rotation: kernel K1's wrapper and its plain
+PyTorch version.
 
     acc' = acc + sum_{g=(o_in,d)} decomp_d((X^p - 1) * acc[o_in]) (*) BK[g, o_out]
 
@@ -9,8 +9,11 @@ negacyclic in Z[X]/(N=1024), mod 2^32 — the function of the TPU kernel
 
 - ``acc``: (B, mask1, N) int32, batch-major;
 - ``p``: (B,) int32 in [0, 2N);
-- ``key_row``: (G = mask1*l, O = mask1, L, R) int64 from
-  ``ops/transform.bootstrap_key_transformed``.
+- ``key_row``: one row of ``ops/transform.bootstrap_key_transformed``,
+  int64: (G = mask1*l, O = mask1, L, R) for the exact engine, or
+  (2, G, O, L, R) for the rounded-key engine, whose MAC reads side 1 on
+  the terms that wrap around the negacyclic convolution.  The row's shape
+  selects the form.
 """
 
 import torch
@@ -20,6 +23,9 @@ from . import transform as tf
 
 # launches of the CUDA kernel (not of the plain version)
 launches = 0
+
+EXACT_ROW = (4, 2, tf.L, tf.R)
+ROUNDED_ROW = (2,) + EXACT_ROW
 
 
 def _digits(acc, p, offset, log2_base, decomp_length):
@@ -43,16 +49,21 @@ def cmux_step_plain(acc, p, key_row, *, offset, log2_base):
     """Plain PyTorch version of K1; any device.  The transform-domain MAC is
     a broadcast multiply-sum in int64 (no value passes 2^58), reduced mod
     2^38 before the inverse."""
-    g_size, o_size = key_row.shape[:2]
+    rounded = key_row.dim() == len(ROUNDED_ROW)
+    g_size, o_size = key_row.shape[-4:-2]
     decomp_length = g_size // acc.shape[1]
     dig = _digits(acc, p, int(offset), log2_base, decomp_length)
     dhat = tf.forward(dig)                                   # (B, G, L, R)
 
-    # kexp[g, o, t, k, u] = key[g, o, t, (k - u) % R] * (-1 if u > k)
+    # kexp[g, o, t, k, u] = key[g, o, t, (k - u) % R] * (-1 if u > k), or,
+    # rounded, the side-1 value (not negated) where u > k
     k = torch.arange(tf.R, device=acc.device)
     idx = (k[:, None] - k[None, :]) % tf.R
-    sgn = torch.where(k[None, :] > k[:, None], -1, 1).to(torch.int64)
-    kexp = key_row[..., idx] * sgn                           # (G, O, L, R, R)
+    wrap = k[None, :] > k[:, None]
+    if rounded:
+        kexp = torch.where(wrap, key_row[1][..., idx], key_row[0][..., idx])
+    else:
+        kexp = key_row[..., idx] * torch.where(wrap, -1, 1).to(torch.int64)
     out = torch.zeros((acc.shape[0], o_size, tf.L, tf.R), dtype=torch.int64,
                       device=acc.device)
     for u in range(tf.R):
@@ -64,26 +75,39 @@ def cmux_step_plain(acc, p, key_row, *, offset, log2_base):
     return wrap_i32(acc.to(torch.int64) + delta)
 
 
-def _check(acc, p, key_row):
-    if acc.dtype != torch.int32 or p.dtype != torch.int32 \
-            or key_row.dtype != torch.int64:
-        raise TypeError("cmux_step takes int32 acc/p and an int64 key row")
+def check_acc(acc, name):
+    if acc.dtype != torch.int32:
+        raise TypeError("%s takes an int32 accumulator" % name)
     if acc.dim() != 3 or acc.shape[1:] != (2, tf.N):
         raise ValueError("acc must be (B, 2, 1024), got %s" % (tuple(acc.shape),))
-    if p.shape != (acc.shape[0],):
-        raise ValueError("p must be (B,), got %s" % (tuple(p.shape),))
-    if key_row.shape != (4, 2, tf.L, tf.R):
-        raise ValueError("key row must be (4, 2, 64, 32), got %s"
-                         % (tuple(key_row.shape),))
-    if not (acc.device == p.device == key_row.device):
-        raise ValueError("acc, p and key row must be on one device")
+
+
+def check_key(key, rows_shape, name):
+    """``key`` is int64 of shape ``rows_shape`` + one row form; returns
+    whether it is the rounded (two-sided) form."""
+    if key.dtype != torch.int64:
+        raise TypeError("%s takes an int64 key" % name)
+    tail = tuple(key.shape[len(rows_shape):])
+    if tuple(key.shape[:len(rows_shape)]) != tuple(rows_shape) \
+            or tail not in (EXACT_ROW, ROUNDED_ROW):
+        raise ValueError("%s: key must be %s + %s or %s, got %s"
+                         % (name, tuple(rows_shape), EXACT_ROW, ROUNDED_ROW,
+                            tuple(key.shape)))
+    return tail == ROUNDED_ROW
 
 
 def cmux_step(acc, p, key_row, *, offset, log2_base):
     """K1: one CMUX step.  A CUDA tensor runs the kernel; a CPU tensor the
-    plain version."""
+    plain version.  Returns a new tensor."""
     global launches
-    _check(acc, p, key_row)
+    check_acc(acc, "cmux_step")
+    rounded = check_key(key_row, (), "cmux_step")
+    if p.dtype != torch.int32:
+        raise TypeError("cmux_step takes int32 powers")
+    if p.shape != (acc.shape[0],):
+        raise ValueError("p must be (B,), got %s" % (tuple(p.shape),))
+    if not (acc.device == p.device == key_row.device):
+        raise ValueError("acc, p and key row must be on one device")
     if acc.device.type == 'cpu':
         return cmux_step_plain(acc, p, key_row, offset=offset,
                                log2_base=log2_base)
@@ -100,7 +124,7 @@ def cmux_step(acc, p, key_row, *, offset, log2_base):
     stream = torch.cuda.current_stream(acc.device).cuda_stream
     code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), key_row.data_ptr(),
               acc.shape[0], int(offset) & 0xFFFFFFFF, int(log2_base),
-              acc.device.index, stream)
+              int(rounded), acc.device.index, stream)
     build.check("cmux_step", code)
     launches += 1
     return out

@@ -1,5 +1,6 @@
 """The exact Nussbaumer transform in PyTorch, and the bootstrap key in the
-form the CMUX step reads.
+form the CMUX step reads, for the exact ('NTT') and the rounded-key
+('FFT') engine.
 
 The CMUX step (``ops/cmux.py``) multiplies in the transform domain against
 the bootstrap key.  The key is transformed once, on the host, with the numpy
@@ -28,21 +29,36 @@ def centred_residues(v_u64):
 def bootstrap_key_transformed(bk_coeff, device, transform_type='NTT'):
     """Transform every key polynomial of a coefficient-domain bootstrap key.
 
+    ``'NTT'`` (exact engine): one side, the residues themselves.
+
+    ``'FFT'`` (rounded-key engine): two sides, side 0 = 64 * round(+v/64)
+    and side 1 = 64 * round(-v/64) of each residue v mod 2^38, each rounded
+    on its own (``ref/transform_ref.rounded_key_sides``) and centred.  The
+    MAC uses side 1, not negated, on the terms that wrap around the
+    negacyclic convolution, and side 0 on the rest.  Since
+    (64 X mod 2^38) >> 6 = X mod 2^32, the CMUX step's inverse and final
+    ``>> 6`` then give the rounded engine's result unchanged.
+
     :param bk_coeff: (n, mask1, l, mask1, N) int32 numpy array.
-    :returns: (n, G = mask1*l, O = mask1, L, R) int64 tensor on ``device``;
-        g = o_in * l + d, matching ``ops/cmux`` and the kernel.
+    :returns: (n, G = mask1*l, O = mask1, L, R) int64 tensor on ``device``
+        ('NTT'), or (n, 2, G, O, L, R) with the side second ('FFT');
+        g = o_in * l + d, matching ``ops/cmux`` and the kernels.
     """
-    if transform_type != 'NTT':
-        raise NotImplementedError(
-            "only the exact ('NTT') engine is ported; transform_type=%r"
-            % (transform_type,))
+    if transform_type not in ('NTT', 'FFT'):
+        raise ValueError("transform_type must be 'NTT' or 'FFT', got %r"
+                         % (transform_type,))
     bk_coeff = np.asarray(bk_coeff)
     n, mask1, l, mask1b, n_poly = bk_coeff.shape
     if mask1b != mask1 or n_poly != N:
         raise ValueError("unexpected bootstrap key shape %s" % (bk_coeff.shape,))
-    hat = centred_residues(tr.forward(bk_coeff))       # (n, mask1, l, mask1, L, R)
-    hat = hat.reshape(n, mask1 * l, mask1, L, R)
-    return torch.from_numpy(np.ascontiguousarray(hat)).to(device)
+    hat = tr.forward(bk_coeff)                         # (n, mask1, l, mask1, L, R)
+    if transform_type == 'NTT':
+        key = centred_residues(hat).reshape(n, mask1 * l, mask1, L, R)
+    else:
+        sides = [centred_residues(q * np.uint64(64))
+                 for q in tr.rounded_key_sides(hat)]
+        key = np.stack(sides, axis=1).reshape(n, 2, mask1 * l, mask1, L, R)
+    return torch.from_numpy(np.ascontiguousarray(key)).to(device)
 
 
 # --- the transform on tensors (the CMUX step's plain version) ---

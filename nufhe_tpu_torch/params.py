@@ -93,8 +93,9 @@ class NuFHEParameters:
     :param transform_type: ``'NTT'`` or ``'FFT'`` — the reference's two
         backends.  ``'NTT'`` is the exact engine: every negacyclic product
         is the exact integer result mod 2^32.  ``'FFT'`` is the JAX
-        package's rounded-key engine; the port has no kernel for it yet,
-        so key preparation (``ops/transform.py``) refuses it.
+        package's rounded-key engine: the key spectrum is rounded to
+        multiples of 64 (``ops/transform.bootstrap_key_transformed``), a
+        tracked noise cost.  Both run through the same kernels.
     :param tlwe_mask_size: number of polynomials in the TLWE mask (k).
 
     The non-default knobs (``tlwe_polynomial_degree``, ``lwe_size``, ...) are

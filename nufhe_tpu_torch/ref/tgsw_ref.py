@@ -1,6 +1,7 @@
 """Numpy oracle for the TGSW layer (``nufhe/tgsw_cpu.py`` formulas).
 
-Mirror of the exact-mode part of ``nufhe_tpu/ref/tgsw_ref.py``.
+Mirror of ``nufhe_tpu/ref/tgsw_ref.py``: the exact and the rounded-key
+external products.
 """
 
 import numpy as np
@@ -53,6 +54,31 @@ def tgsw_external_mul(accum, bk_coeff, bk_row_idx, params):
                 terms_a.append(decomp[..., in_idx, d, :])
                 terms_b.append(row[in_idx, d, out_idx])
         out[..., out_idx, :] = transform_ref.negacyclic_mul_accum(terms_a, terms_b)
+    return out.astype(Torus32)
+
+
+def tgsw_external_mul_rounded(accum, bk_coeff, bk_row_idx, params):
+    """Rounded-key ('FFT' mode) external product: the digit transforms in
+    u64 wraparound, each product against the two-sided rounded key
+    (``transform_ref.rounded_key_sides``), and the unscaled inverse taken
+    mod 2^32 directly (no ``>> 6``: the key sides are already divided by
+    64).  Deterministic and exact given the rounding."""
+    mask1 = accum.shape[-2]
+    decomp = tgsw_polynomial_decomp(accum, params)  # (..., mask1, l, N)
+    row = bk_coeff[bk_row_idx]                      # (mask1, l, mask1, N)
+
+    out = np.zeros_like(np.asarray(accum))
+    for out_idx in range(mask1):
+        acc_hat = None
+        for in_idx in range(mask1):
+            for d in range(params.decomp_length):
+                dh = transform_ref.forward(decomp[..., in_idx, d, :])
+                vh = transform_ref.forward(row[in_idx, d, out_idx])
+                vpos, vneg = transform_ref.rounded_key_sides(vh)
+                term = transform_ref.smul_sided(dh, vpos, vneg)
+                acc_hat = term if acc_hat is None else acc_hat + term
+        out[..., out_idx, :] = transform_ref.u64_to_i32(
+            transform_ref.inverse_unscaled(acc_hat))
     return out.astype(Torus32)
 
 

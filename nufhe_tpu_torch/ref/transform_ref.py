@@ -1,6 +1,7 @@
 """Host/oracle implementation of the exact negacyclic polynomial product.
 
-Numpy mirror of ``nufhe_tpu/ref/transform_ref.py`` (the exact-mode part).
+Numpy mirror of ``nufhe_tpu/ref/transform_ref.py``: the exact product and
+the rounded-key ('FFT' mode) key sides and two-sided S'-multiplication.
 Every negacyclic product in TFHE is the exact integer product truncated
 mod 2^32.  It is computed with a Nussbaumer polynomial transform over
 Z/2^64 (numpy uint64 wraparound):
@@ -108,6 +109,36 @@ def smul(p, q):
         if len(u2):
             out[..., k] -= (p[..., u2] * q[..., k + R - u2]).sum(-1)
     return out
+
+
+def smul_sided(p, qpos, qneg):
+    """Two-sided S'-multiplication (the rounded-key engine's semantics):
+    the negacyclic wrap uses ``qneg`` (an independent rounding of -q mod
+    2^38) instead of negating ``qpos``.
+
+    out[k] = sum_{u<=k} p[u] qpos[k-u] + sum_{u>k} p[u] qneg[k-u+R]
+    (u64 wraparound)."""
+    out = np.zeros(np.broadcast_shapes(p.shape, qpos.shape), _U64)
+    for k in range(R):
+        u = np.arange(k + 1)
+        out[..., k] = (p[..., u] * qpos[..., k - u]).sum(-1)
+        u2 = np.arange(k + 1, R)
+        if len(u2):
+            out[..., k] += (p[..., u2] * qneg[..., k + R - u2]).sum(-1)
+    return out
+
+
+def rounded_key_sides(bhat_u64):
+    """Rounded-key ('FFT') mode key sides: the mod-2^38 residues of +v and
+    of -v mod 2^38, each centred and rounded to vhi = round(v/64) =
+    (v + 32) >> 6 on its own, as u64 wraparound values.  The two sides
+    differ from plain negation exactly where v = 32 mod 64."""
+    r = bhat_u64 & np.uint64(2**38 - 1)
+    v = r.astype(np.int64)
+    v = v - ((v >> 37) << 38)
+    w = ((np.uint64(2**38) - r) & np.uint64(2**38 - 1)).astype(np.int64)
+    w = w - ((w >> 37) << 38)
+    return ((v + 32) >> 6).astype(_U64), ((w + 32) >> 6).astype(_U64)
 
 
 def inverse_unscaled(chat):

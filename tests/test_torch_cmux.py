@@ -123,5 +123,5 @@ def test_cmux_wrapper_rejects_bad_input():
         cmux.cmux_step(acc, p[:1], key, **kw)
     with pytest.raises(ValueError):
         cmux.cmux_step(acc, p, key[:2], **kw)
-    with pytest.raises(NotImplementedError):
-        ttf.bootstrap_key_transformed(bk_coeff, "cpu", transform_type='FFT')
+    with pytest.raises(ValueError):
+        ttf.bootstrap_key_transformed(bk_coeff, "cpu", transform_type='FFTW')
