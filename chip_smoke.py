@@ -11,8 +11,11 @@ and prints no result line):
    per source, all at once) and print ``ptxas``'s register/spill lines;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    at a small batch and at the gate paths' batch (4096): K1 (CMUX step) with
-   the exact and the rounded key, K2 (keyswitch), and K3 (chunked rotation,
-   4 steps from step 2, both key forms) also against 4 K1 launches;
+   the exact and the rounded key, K2 (keyswitch), K3 (chunked rotation,
+   4 steps from step 2, both key forms) also against 4 K1 launches, and K4
+   (lanes-layout CMUX step on the TPU's int8 key operand, both key forms,
+   also at a batch of 100 that leaves a partial MAC tile) also as 4 steps
+   against 4 K1 launches on the same coefficient key;
 4. the gate paths at the default parameters (n=500, N=1024), on 4096
    random inputs, through the entry points, each with the launch counts set
    to 0 just before the gate and read just after:
@@ -23,24 +26,30 @@ and prints no result line):
    - MUX on the default path: one rotation over 8192 samples, 10 K3, 1 K2;
    - the per-step path, ``PerformanceParameters(chunk_steps=1)``: NAND
      through 500 K1 launches and 1 K2;
+   - the lanes path, ``PerformanceParameters(single_kernel_bootstrap=
+     False)``: NAND in both engines and MUX through 500 K4 launches and
+     1 K2; each NAND equals the default path's NAND bit for bit;
    each decrypts to its truth table and prints its largest phase error;
-   the two NANDs of the default path also equal the same gate run on the
-   CPU through the plain versions on 8 of the inputs, bit for bit;
+   the two NANDs of the default path and of the lanes path also equal the
+   same gate run on the CPU through the plain versions on 8 of the inputs,
+   bit for bit;
 5. timing at batch 2^14: warm ms/bit of the NAND in both engines on the
-   default path and on the per-step path, and of MUX; each kernel's ms per
-   launch beside its plain version, a PyTorch library call where one
-   computes the same function, and its bound;
+   default path, the per-step path and the lanes path, and of MUX; each
+   kernel's ms per launch beside its plain version, a PyTorch library call
+   where one computes the same function, and its bound;
 6. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The bound of a kernel is the larger of its bytes (each input read once,
-each output written once) over 3.35 TB/s and its operations over 67e12/s.
-The kernels do 64-bit or 32-bit integer arithmetic outside the tensor
-cores, for which the H100 data sheet states no rate; 67e12/s, its float32
-rate outside the tensor cores, is the highest rate it states for such
-units, so the bound is a least time.  A kernel's ``launches`` in the JSON
-line is its count in the gate of the path that runs it (K1: the per-step
-path; K2 and K3: the default path).
+each output written once) over 3.35 TB/s and its operations over the
+card's peak rate for their type.  K1, K2 and K3 do 64-bit or 32-bit
+integer arithmetic outside the tensor cores, for which the H100 data sheet
+states no rate; 67e12/s, its float32 rate outside the tensor cores, is the
+highest rate it states for such units, so the bound is a least time.  K4's
+MAC is int8 x int8 -> int32, which the data sheet rates at 1979e12
+operations/s dense on the tensor cores.  A kernel's ``launches`` in the
+JSON line is its count in the gate of the path that runs it (K1: the
+per-step path; K2 and K3: the default path; K4: the lanes path).
 """
 
 import json
@@ -54,12 +63,14 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 SEED = 2026
 MAIN_BATCH = 4096
 TIMING_BATCH = 1 << 14
 N_LWE = 500                # n: the blind rotation's steps
 CHUNK = 50                 # the default path's steps per K3 launch
-KERNEL_NAMES = ("cmux_step", "keyswitch", "blind_rotate_chunk")
+KERNEL_NAMES = ("cmux_step", "keyswitch", "blind_rotate_chunk",
+                "lanes_step")
 
 
 def nvidia_smi_line():
@@ -82,9 +93,9 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -101,9 +112,9 @@ def max_abs_err(x, y):
 
 
 def counters():
-    from nufhe_tpu_torch.ops import blind_rotate, cmux, keyswitch
+    from nufhe_tpu_torch.ops import blind_rotate, cmux, keyswitch, lanes_step
     return {"cmux_step": cmux, "keyswitch": keyswitch,
-            "blind_rotate_chunk": blind_rotate}
+            "blind_rotate_chunk": blind_rotate, "lanes_step": lanes_step}
 
 
 def reset_counts():
@@ -120,6 +131,16 @@ def random_key(rng, rows, tp, dev, transform_type):
     bk = rng.randint(-2**31, 2**31,
                      (rows, 2, tp.decomp_length, 2, 1024)).astype(np.int32)
     return tf.bootstrap_key_transformed(bk, dev, transform_type)
+
+
+def random_lanes_key(rng, rows, tp, dev, mode):
+    """The lanes engine's int8 key (the port's ``build_mac_rhs``) and the
+    rows engine's int64 key of one random coefficient key."""
+    from nufhe_tpu_torch.ops import tgsw, transform as tf
+    bk = rng.randint(-2**31, 2**31,
+                     (rows, 2, tp.decomp_length, 2, 1024)).astype(np.int32)
+    return (tgsw.prepare_bootstrap_key_device(bk, dev, exact=mode == "NTT"),
+            tf.bootstrap_key_transformed(bk, dev, mode))
 
 
 def random_acc(rng, batch, dev):
@@ -193,6 +214,35 @@ def check_kernels(nft, dev, rng, results):
             record_err(results, "blind_rotate_chunk",
                        "K3 blind_rotate_chunk %s vs %d K1 launches, batch %d"
                        % (mode, chunk, batch), max_abs_err(got, by_k1))
+    check_k4(dev, rng, results, tp, kw)
+
+
+def check_k4(dev, rng, results, tp, kw):
+    from nufhe_tpu_torch.ops import cmux, flat_engine as fe, lanes_step as k4
+    steps = 4
+    for mode in ("NTT", "FFT"):
+        lanes_key, rows_key = random_lanes_key(rng, steps, tp, dev, mode)
+        for batch in (64, 100, MAIN_BATCH):     # 100: a ragged MAC tile
+            acc = random_acc(rng, batch, dev)
+            acc_q = fe.q_from_n(acc).reshape(batch, -1).contiguous()
+            p = random_powers(rng, (batch,), dev)
+            got = k4.lanes_step(acc_q, p, lanes_key[0], **kw)
+            want = k4.lanes_step_plain(acc_q, p, lanes_key[0], **kw)
+            torch.cuda.synchronize()
+            record_err(results, "lanes_step", "K4 lanes_step %s vs plain, "
+                       "batch %d" % (mode, batch), max_abs_err(got, want))
+        bara_t = random_powers(rng, (steps, MAIN_BATCH), dev)
+        by_k4 = k4.blind_rotate_lanes(
+            fe.q_from_n(acc).reshape(MAIN_BATCH, -1).contiguous(), lanes_key,
+            bara_t, **kw)
+        by_k1 = acc
+        for i in range(steps):
+            by_k1 = cmux.cmux_step(by_k1, bara_t[i], rows_key[i], **kw)
+        torch.cuda.synchronize()
+        record_err(results, "lanes_step", "K4 %s: %d launches vs %d K1 "
+                   "launches on the same coefficient key, batch %d"
+                   % (mode, steps, steps, MAIN_BATCH),
+                   max_abs_err(fe.n_from_q(by_k4.reshape(acc.shape)), by_k1))
 
 
 def phase_error_frac(nft, secret, out, want):
@@ -235,10 +285,10 @@ def run_gate(nft, label, secret, vm, gate, args, want, expect):
     return out, counts
 
 
-def same_on_cpu(nft, label, cloud, gate, args, out):
+def same_on_cpu(nft, label, cloud, gate, args, out, perf=None):
     """The same gate on 8 of the inputs on the CPU, through the plain
     versions, equals the card's output bit for bit."""
-    vm_cpu = nft.VirtualMachine(cloud, device="cpu")
+    vm_cpu = nft.VirtualMachine(cloud, perf, device="cpu")
     t0 = time.time()
     sub = [nft.LweSampleArray(c.params, c.a[:8].cpu(), c.b[:8].cpu(),
                               c.current_variances[:8].cpu()) for c in args]
@@ -261,6 +311,15 @@ def fft_cloud(nft, cloud):
         ks.ks_a, ks.ks_b, ks.ks_cv, ks.log2_base)
 
 
+def cpu_lanes_cloud(nft, cloud, dev):
+    """A cloud key for the CPU that carries the card's lanes key across as
+    a prepared array (``cloud_key_from_arrays(..., mac_rhs=...)``)."""
+    bk, ks = cloud.bootstrap_key, cloud.keyswitch_key
+    return nft.cloud_key_from_arrays(
+        cloud.params, bk.bk_coeff, bk.cv, ks.ks_a, ks.ks_b, ks.ks_cv,
+        ks.log2_base, mac_rhs=bk.mac_rhs(dev).cpu().numpy())
+
+
 def gate_paths(nft, dev, rng):
     """The gate paths at batch 4096; returns each kernel's launches and the
     keys and machines for the timing phase."""
@@ -273,13 +332,20 @@ def gate_paths(nft, dev, rng):
         c.bootstrap_key.device(dev)
         c.keyswitch_key.device(dev)
         torch.cuda.synchronize()
-        print("key preparation (%s: transform + upload): %.1f s"
-              % (c.params.transform_type, time.time() - t0))
+        t1 = time.time()
+        c.bootstrap_key.mac_rhs(dev)
+        torch.cuda.synchronize()
+        print("key preparation (%s: transform + upload): %.1f s; lanes key "
+              "(host limbs + expansion on the card): %.1f s"
+              % (c.params.transform_type, t1 - t0, time.time() - t1))
+    lanes = nft.PerformanceParameters(single_kernel_bootstrap=False)
     vms = {
         "default NTT": nft.VirtualMachine(cloud, device=dev),
         "default FFT": nft.VirtualMachine(cloud_fft, device=dev),
         "per-step NTT": nft.VirtualMachine(
             cloud, nft.PerformanceParameters(chunk_steps=1), device=dev),
+        "lanes NTT": nft.VirtualMachine(cloud, lanes, device=dev),
+        "lanes FFT": nft.VirtualMachine(cloud_fft, lanes, device=dev),
     }
     if vms["default NTT"].perf_params.chunk_steps != CHUNK:
         raise AssertionError("the default chunk on the card is not %d" % CHUNK)
@@ -288,20 +354,38 @@ def gate_paths(nft, dev, rng):
     x, y, z = (rng.randint(0, 2, MAIN_BATCH).astype(bool) for _ in range(3))
     cx, cy, cz = (nft.encrypt(crng, secret, v, device=dev) for v in (x, y, z))
     n_chunks = N_LWE // CHUNK
-    chunked = {"cmux_step": 0, "keyswitch": 1, "blind_rotate_chunk": n_chunks}
-    launches = {}
+    none = dict.fromkeys(KERNEL_NAMES, 0)
+    chunked = dict(none, keyswitch=1, blind_rotate_chunk=n_chunks)
+    launches = dict(none)
+    default_out = {}
     for label, c in (("default NTT", cloud), ("default FFT", cloud_fft)):
         out, counts = run_gate(nft, label, secret, vms[label], "gate_nand",
                                (cx, cy), ~(x & y), chunked)
         same_on_cpu(nft, label, c, "gate_nand", (cx, cy), out)
-        launches = {k: max(launches.get(k, 0), n) for k, n in counts.items()}
+        launches = {k: max(launches[k], n) for k, n in counts.items()}
+        default_out[c.params.transform_type] = out
     run_gate(nft, "default NTT", secret, vms["default NTT"], "gate_mux",
              (cx, cy, cz), np.where(x, y, z), chunked)
     _, counts = run_gate(
         nft, "per-step NTT", secret, vms["per-step NTT"], "gate_nand",
-        (cx, cy), ~(x & y),
-        {"cmux_step": N_LWE, "keyswitch": 1, "blind_rotate_chunk": 0})
+        (cx, cy), ~(x & y), dict(none, cmux_step=N_LWE, keyswitch=1))
     launches = {k: max(launches[k], n) for k, n in counts.items()}
+
+    lanes_counts = dict(none, lanes_step=N_LWE, keyswitch=1)
+    for label, c in (("lanes NTT", cloud), ("lanes FFT", cloud_fft)):
+        out, counts = run_gate(nft, label, secret, vms[label], "gate_nand",
+                               (cx, cy), ~(x & y), lanes_counts)
+        launches = {k: max(launches[k], n) for k, n in counts.items()}
+        ref = default_out[c.params.transform_type]
+        same = torch.equal(out.a, ref.a) and torch.equal(out.b, ref.b)
+        print("%s: NAND vs the default path's NAND on %d inputs: %s"
+              % (label, MAIN_BATCH, "bit-equal" if same else "DIFFERENT"))
+        if not same:
+            raise AssertionError("%s differs from the default path" % label)
+        same_on_cpu(nft, label, cpu_lanes_cloud(nft, c, dev), "gate_nand",
+                    (cx, cy), out, lanes)
+    run_gate(nft, "lanes NTT", secret, vms["lanes NTT"], "gate_mux",
+             (cx, cy, cz), np.where(x, y, z), lanes_counts)
     return launches, secret, cloud, cloud_fft, vms
 
 
@@ -326,7 +410,8 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
     crng = nft.DeterministicRNG(SEED + 2)
     x, y, z = (rng.randint(0, 2, b).astype(bool) for _ in range(3))
     cx, cy, cz = (nft.encrypt(crng, secret, v, device=dev) for v in (x, y, z))
-    for label in ("default NTT", "default FFT", "per-step NTT"):
+    for label in ("default NTT", "default FFT", "per-step NTT", "lanes NTT",
+                  "lanes FFT"):
         ms_bit, times = gate_ms_bit(nft, secret, vms[label], "gate_nand",
                                     (cx, cy), ~(x & y))
         print("%s NAND warm, batch %d: %s ms/bit (gate %s s)"
@@ -378,6 +463,8 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
                 ms=k3_ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=None)
 
+    timing_k4(dev, rng, cloud, cloud_fft, results, kw)
+
     # K2 at the timing batch: the gate's keyswitch table, random input
     ks_arrays, meta = cloud.keyswitch_key.device(dev)
     table = ks_arrays["table"]
@@ -410,6 +497,43 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
           "%.4f ms, bound %.4f ms (%s)"
           % (b, k2_ms, k2_plain, lib_ms, k2_bound, k2_by))
     del onehot, table64, lib
+
+
+def timing_k4(dev, rng, cloud, cloud_fft, results, kw):
+    """K4 at the timing batch: the gate's key rows (both forms), a random
+    q-layout accumulator and powers.  Beside it, as a part of its work and
+    not its function, the MAC alone as 64 ``torch._int_mm`` calls."""
+    from nufhe_tpu_torch.ops import lanes_step as k4
+    b = TIMING_BATCH
+    acc_q = random_acc(rng, b, dev).reshape(b, -1)
+    p = random_powers(rng, (b,), dev)
+    for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
+        key_row = c.bootstrap_key.mac_rhs(dev)[0]
+        k4.lanes_step(acc_q, p, key_row, **kw)
+        ms = cuda_ms(lambda: k4.lanes_step(acc_q, p, key_row, **kw), 20)
+        plain = cuda_ms(lambda: k4.lanes_step_plain(acc_q, p, key_row, **kw),
+                        2)
+        n_ops = 2 * b * key_row.numel()         # int8 multiply-adds x 2
+        bound, by = bound_ms(2 * acc_q.numel() * 4 + p.numel() * 4
+                             + key_row.numel(), n_ops, INT8_OPS_PER_S)
+        lhs = torch.randint(-128, 128, (key_row.shape[0], b, key_row.shape[1]),
+                            dtype=torch.int8, device=dev)
+        mac = torch._int_mm(lhs[0], key_row[0])
+        if not torch.equal(mac.to(torch.float64),
+                           lhs[0].to(torch.float64) @ key_row[0].to(
+                               torch.float64)):
+            raise AssertionError("torch._int_mm disagrees with float64")
+        mac_ms = cuda_ms(lambda: [torch._int_mm(lhs[t], key_row[t])
+                                  for t in range(key_row.shape[0])], 10)
+        print("K4 %s batch %d: %.4f ms/launch, plain %.2f ms, bound %.4f ms "
+              "(%s); a part of its work, not its function: the MAC alone as "
+              "%d torch._int_mm (%d x %d)(%d x %d) %.4f ms"
+              % (mode, b, ms, plain, bound, by, key_row.shape[0], b,
+                 key_row.shape[1], key_row.shape[1], key_row.shape[2], mac_ms))
+        del lhs, mac
+        if mode == "NTT":
+            results["lanes_step"].update(ms=ms, plain_ms=plain, bound_ms=bound,
+                                         bound_by=by, library_ms=None)
 
 
 def build_kernels():
@@ -450,6 +574,10 @@ def main():
             name="blind_rotate_chunk", route="cuda",
             source="nufhe_tpu_torch/kernels/csrc/blind_rotate_chunk.cu",
             replaces="nufhe_tpu/ops/pallas/blind_rotate.py:83"),
+        "lanes_step": dict(
+            name="lanes_step", route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/lanes_step.cu",
+            replaces="nufhe_tpu/ops/pallas/blind_rotate.py:175"),
     }
     check_kernels(nft, dev, rng, results)
 

@@ -13,7 +13,7 @@ from .params import LweParams, TLweParams, TGswParams, NuFHEParameters
 from .rng import rand_uniform_bool, rand_uniform_torus32, rand_gaussian_torus32
 from .ref import tlwe_ref, tgsw_ref, lwe_ref
 from .ops import lwe as dlwe
-from .ops import transform
+from .ops import tgsw, transform
 
 
 class LweKey:
@@ -75,6 +75,8 @@ class BootstrapKey:
         self.bk_coeff = np.asarray(bk_coeff, Torus32)
         self.cv = np.asarray(cv, ErrorFloat)
         self._device = {}
+        self._mac_rhs = {}
+        self._mac_rhs_host = None
 
     @classmethod
     def from_rng(cls, rng, lwe_key: LweKey, tgsw_key: TGswKey):
@@ -105,6 +107,39 @@ class BootstrapKey:
             self._device[dev] = transform.bootstrap_key_transformed(
                 self.bk_coeff, dev, self.accum_params.transform_type)
         return self._device[dev]
+
+    def mac_rhs(self, dev):
+        """The lanes engine's key on ``dev`` (cached): the TPU's MAC
+        operand, (n, L, C, Q) int8 (``ops/tgsw.prepare_bootstrap_key_device``),
+        exact (Q = 5*O*R) for 'NTT' and rounded (Q = 4*O*R) for 'FFT'.  A
+        prepared array given to :meth:`set_mac_rhs` is uploaded as it is."""
+        dev = torch.device(dev)
+        if dev not in self._mac_rhs:
+            if self._mac_rhs_host is not None:
+                key = torch.from_numpy(self._mac_rhs_host).to(dev)
+            else:
+                key = tgsw.prepare_bootstrap_key_device(
+                    self.bk_coeff, dev,
+                    exact=self.accum_params.transform_type != 'FFT')
+            self._mac_rhs[dev] = key
+        return self._mac_rhs[dev]
+
+    def set_mac_rhs(self, mac_rhs):
+        """Take a prepared (n, L, C, Q) int8 array — the JAX package's
+        ``bootstrap_key.device()`` as numpy — as the lanes engine's key.
+        It must have this key's rows and ``transform_type``'s form."""
+        mac_rhs = np.array(mac_rhs)     # an own, writable copy
+        mask1 = self.accum_params.mask_size + 1
+        groups = 4 if self.accum_params.transform_type == 'FFT' else 5
+        want = (self.bk_coeff.shape[0], transform.L,
+                mask1 * self.bk_params.decomp_length * 2 * transform.R,
+                groups * mask1 * transform.R)
+        if mac_rhs.dtype != np.int8 or mac_rhs.shape != want:
+            raise ValueError("a %s lanes key must be int8 %s, got %s %s"
+                             % (self.accum_params.transform_type, want,
+                                mac_rhs.dtype, mac_rhs.shape))
+        self._mac_rhs_host = mac_rhs
+        self._mac_rhs = {}
 
 
 class LweKeyswitchKey:
@@ -202,9 +237,13 @@ def secret_key_from_array(params: NuFHEParameters, lwe_key):
 
 
 def cloud_key_from_arrays(params: NuFHEParameters, bk_coeff, bk_cv,
-                          ks_a, ks_b, ks_cv, log2_base: int):
+                          ks_a, ks_b, ks_cv, log2_base: int, mac_rhs=None):
     """A cloud key holding the given numpy arrays: the coefficient-domain
-    bootstrap key and its variances, and the keyswitch key tables."""
+    bootstrap key and its variances, and the keyswitch key tables.
+    ``mac_rhs``, if given, is the prepared lanes-engine key (the JAX
+    package's ``bootstrap_key.device()``; :meth:`BootstrapKey.set_mac_rhs`)."""
     bk = BootstrapKey(params.in_out_params, params.tgsw_params, bk_coeff, bk_cv)
+    if mac_rhs is not None:
+        bk.set_mac_rhs(mac_rhs)
     ks = LweKeyswitchKey(ks_a, ks_b, ks_cv, log2_base)
     return NuFHECloudKey(params, bk, ks)

@@ -74,11 +74,19 @@ def _broadcast_flat(ct, shape, lwe_size, device):
 
 def _perf_kwargs(perf_params, device):
     """The bootstrap's knobs from ``perf_params`` (unset: the defaults for
-    ``device``)."""
+    ``device``); ``single_kernel_bootstrap`` picks the engine (True: rows,
+    False: lanes)."""
     if perf_params is None:
         perf_params = PerformanceParameters().for_device(device)
     return dict(chunk_steps=perf_params.chunk_steps,
-                coarse_phase_bits=perf_params.coarse_phase_bits)
+                coarse_phase_bits=perf_params.coarse_phase_bits,
+                lanes=not perf_params.single_kernel_bootstrap)
+
+
+def _bootstrap_key(cloud_key, device, lanes):
+    """The bootstrap key in the engine's form on ``device``."""
+    bk = cloud_key.bootstrap_key
+    return bk.mac_rhs(device) if lanes else bk.device(device)
 
 
 def _linear_bootstrap(inputs, const, coeffs, bk_dev, ks_arrays, *, mu,
@@ -115,10 +123,11 @@ def _bootstrap_gate(cloud_key, result, sources, const, coeffs, device,
     inputs = tuple(_broadcast_flat(src, shape, lwe_size, device)
                    for src in sources)
     ks_arrays, ks_meta = cloud_key.keyswitch_key.device(device)
+    perf = _perf_kwargs(perf_params, device)
+    bk_dev = _bootstrap_key(cloud_key, device, perf.pop("lanes"))
     ra, rb, rcv = _linear_bootstrap(
-        inputs, const, coeffs, cloud_key.bootstrap_key.device(device),
-        ks_arrays, mu=_MU, tgsw_params=params.tgsw_params, ks_meta=ks_meta,
-        **_perf_kwargs(perf_params, device))
+        inputs, const, coeffs, bk_dev, ks_arrays, mu=_MU,
+        tgsw_params=params.tgsw_params, ks_meta=ks_meta, **perf)
     return _store(result, shape, ra, rb, rcv)
 
 
@@ -219,10 +228,11 @@ def gate_mux(cloud_key, result, a, b, c, device, perf_params=None):
     lwe_b = wrap_i32(torch.cat([and_const + _i64(ab) + _i64(bb),
                                 and_const - _i64(ab) + _i64(cb)]))
     ks_arrays, ks_meta = cloud_key.keyswitch_key.device(device)
+    perf = _perf_kwargs(perf_params, device)
+    bk_dev = _bootstrap_key(cloud_key, device, perf.pop("lanes"))
     ex_a, ex_b, ex_cv = dboot.bootstrap_device(
-        lwe_a, lwe_b, cloud_key.bootstrap_key.device(device), ks_arrays,
-        ks_meta, _MU, params.tgsw_params, no_keyswitch=True,
-        **_perf_kwargs(perf_params, device))
+        lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, _MU, params.tgsw_params,
+        no_keyswitch=True, **perf)
     ta = wrap_i32(_i64(ex_a[:bsz]) + _i64(ex_a[bsz:]))
     tb = wrap_i32(mux_const + _i64(ex_b[:bsz]) + _i64(ex_b[bsz:]))
     ra, rb, rcv = dlwe.lwe_keyswitch(ks_arrays, ks_meta, ta, tb,

@@ -1,13 +1,22 @@
 """Gate bootstrap in PyTorch: modulus switch, blind rotation, extraction,
 keyswitch (``nufhe_tpu/ops/bootstrap.py``'s counterpart), in both engine
-modes.  The blind rotation runs ``n / chunk_steps`` launches of the chunked
-kernel K3 when the chunk divides n, else n launches of the step kernel K1.
+modes.  The key's form selects the blind rotation's engine:
+
+- the rows engine (int64 key of ``ops/transform.bootstrap_key_transformed``):
+  ``n / chunk_steps`` launches of the chunked kernel K3 when the chunk
+  divides n, else n launches of the step kernel K1;
+- the lanes engine (int8 key of ``ops/tgsw.prepare_bootstrap_key_device``,
+  the JAX package's ``flat_engine`` path, ``bootstrap.py:249-262``): the
+  accumulator in q-layout and n launches of the lanes step K4;
+  ``chunk_steps`` does not apply.
 """
 
 import torch
 
 from . import blind_rotate as brc
 from . import cmux
+from . import flat_engine as fe
+from . import lanes_step as lanes
 from . import lwe as dlwe
 from . import tlwe as dtlwe
 from ..ref.bootstrap_ref import blind_rotate_variance
@@ -45,20 +54,28 @@ def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
     """ACC <- BK_i (x) [(X^{bara_i}-1) ACC] + ACC over all n key bits.
 
     :param accum_a: (B, mask_size+1, N) int32.
-    :param bk_dev: transformed key (``ops/transform.bootstrap_key_transformed``):
-        (n, G, O, L, R) int64 when ``exact``, else (n, 2, G, O, L, R).
+    :param bk_dev: the rows engine's transformed key
+        (``ops/transform.bootstrap_key_transformed``): (n, G, O, L, R) int64
+        when ``exact``, else (n, 2, G, O, L, R); or the lanes engine's
+        (n, L, C, Q) int8 key (``ops/tgsw.prepare_bootstrap_key_device``).
     :param bara: (B, n) int32 in [0, 2N).
     :param chunk_steps: steps per K3 launch; 1, or a chunk that does not
-        divide n, runs one K1 launch a step.
+        divide n, runs one K1 launch a step.  The lanes engine ignores it.
     """
     n = bara.shape[-1]
-    if cmux.check_key(bk_dev, (n,), "blind_rotate") == exact:
+    lanes_key = bk_dev.dtype == torch.int8
+    check = lanes.check_key if lanes_key else cmux.check_key
+    if check(bk_dev, (n,), "blind_rotate") == exact:
         raise ValueError("the key's form does not match the %s engine"
                          % ("exact" if exact else "rounded-key"))
     kw = dict(offset=int(tgsw_params.offset),
               log2_base=tgsw_params.bs_log2_base)
-    acc = accum_a.contiguous()
     bara_t = bara.t().contiguous()              # (n, B): one row per step
+    if lanes_key:
+        acc_q = fe.q_from_n(accum_a).reshape(accum_a.shape[0], -1).contiguous()
+        acc_q = lanes.blind_rotate_lanes(acc_q, bk_dev, bara_t, **kw)
+        return fe.n_from_q(acc_q.reshape(accum_a.shape))
+    acc = accum_a.contiguous()
     chunk = int(chunk_steps)
     if chunk > 1 and n % chunk == 0:
         for start in range(0, n, chunk):
@@ -74,7 +91,8 @@ def bootstrap_device(lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, mu,
                      coarse_phase_bits=0):
     """Full gate bootstrap: LWE(mu) if phase > 0 else LWE(-mu), fresh noise.
     Reference: ``nufhe/bootstrap.py:154-229``.  The engine mode comes from
-    ``tgsw_params.tlwe_params.transform_type``.
+    ``tgsw_params.tlwe_params.transform_type``, the engine (rows or lanes)
+    from the key's form (:func:`blind_rotate`).
 
     :param lwe_a: (B, n_in) int32; ``lwe_b``: (B,) int32.
     :returns: (a, b, cv) in the keyswitched (or extracted) LWE space.

@@ -16,8 +16,13 @@ over.  On the card the knobs mean:
   2^bits (``ops/bootstrap.round_phase_coarse``), an opt-in noise-for-speed
   trade.  Unset, it comes from ``NUFHE_TPU_COARSE_PHASE_BITS``, else 0;
   clamped to 0..4.
-- ``single_kernel_bootstrap``: the card has only the kernel path, so
-  ``False`` on a CUDA device raises; unset means the kernels.
+- ``single_kernel_bootstrap``: the blind rotation's engine.  True is the
+  rows engine (K3 chunks or K1 steps, ``ops/cmux.py``); False is the
+  lanes engine of the JAX package's ``ops/flat_engine`` on the TPU's int8
+  key operand (n launches of K4, ``ops/lanes_step.py``), on every device.
+  Unset, it is True on every device.  This departs from the JAX package,
+  whose unset value is False off the TPU only because its rows kernel
+  cannot run under XLA:CPU; gate results are bit-equal either way.
 - ``batch_tile`` and ``vmem_mb``: the TPU's memory knobs.  They are kept as
   attributes so that user code carries over, and select nothing here.
 """
@@ -65,13 +70,7 @@ class PerformanceParametersForDevice:
         on_cuda = device_type == 'cuda'
 
         skb = perf_params.single_kernel_bootstrap
-        if skb is None:
-            skb = on_cuda
-        elif on_cuda and not skb:
-            raise ValueError(
-                "single_kernel_bootstrap=False: the CUDA device runs only "
-                "the kernels; pass device='cpu' for the plain versions")
-        self.single_kernel_bootstrap = bool(skb)
+        self.single_kernel_bootstrap = True if skb is None else bool(skb)
         self.batch_tile = perf_params.batch_tile
         self.vmem_mb = perf_params.vmem_mb
         chunk = perf_params.chunk_steps

@@ -163,7 +163,7 @@ def test_for_device_resolution(monkeypatch):
     perf = tnf.PerformanceParameters()
     cpu = perf.for_device("cpu")
     assert (cpu.chunk_steps, cpu.coarse_phase_bits) == (1, 0)
-    assert not cpu.single_kernel_bootstrap
+    assert cpu.single_kernel_bootstrap       # unset: the rows engine
     # only the device's type is read, so no card is needed
     cuda = perf.for_device(torch.device("cuda", 0))
     assert (cuda.chunk_steps, cuda.coarse_phase_bits) == (50, 0)
@@ -178,11 +178,12 @@ def test_for_device_resolution(monkeypatch):
         assert (got.chunk_steps, got.coarse_phase_bits) == (25, 1)
     assert tnf.PerformanceParameters(chunk_steps=2).for_device(
         "cuda").chunk_steps == 2
-    with pytest.raises(ValueError):
-        tnf.PerformanceParameters(single_kernel_bootstrap=False).for_device(
-            "cuda")
-    assert tnf.PerformanceParameters(
-        single_kernel_bootstrap=False).for_device("cpu").chunk_steps == 25
+    # False selects the lanes engine on every device
+    for dev in ("cpu", "cuda"):
+        lanes = tnf.PerformanceParameters(
+            single_kernel_bootstrap=False).for_device(dev)
+        assert not lanes.single_kernel_bootstrap
+        assert lanes.chunk_steps == 25
     # the TPU memory knobs are kept and select nothing
     kept = tnf.PerformanceParameters(batch_tile=512, vmem_mb=64).for_device(
         "cpu")
