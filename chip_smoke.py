@@ -10,12 +10,15 @@ and prints no result line):
 2. build every kernel from ``nufhe_tpu_torch/kernels/csrc`` (one ``nvcc``
    per source, all at once) and print ``ptxas``'s register/spill lines;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   at a small batch and at the gate paths' batch (4096): K1 (CMUX step) with
-   the exact and the rounded key, K2 (keyswitch), K3 (chunked rotation,
-   4 steps from step 2, both key forms) also against 4 K1 launches, and K4
-   (lanes-layout CMUX step on the TPU's int8 key operand, both key forms,
-   also at a batch of 100 that leaves a partial MAC tile) also as 4 steps
-   against 4 K1 launches on the same coefficient key;
+   at a small or ragged batch and at the gate paths' batch (4096): K1 (CMUX
+   step) with the exact and the rounded key, K2 (keyswitch, int8 tensor
+   cores, on the JAX package's ``ab_limbs``; batch 100 leaves a partial
+   sample tile, and at 2^14 too), K3 (chunked rotation on the int8 tensor
+   cores, 4 steps from step 2, both key forms, batch 101 leaves a partial
+   sample group) also against 4 K1 launches, and K4 (lanes-layout CMUX step
+   on the TPU's int8 key operand, both key forms, also at a batch of 100
+   that leaves a partial MAC tile) also as 4 steps against 4 K1 launches on
+   the same coefficient key;
 4. the gate paths at the default parameters (n=500, N=1024), on 4096
    random inputs, through the entry points, each with the launch counts set
    to 0 just before the gate and read just after:
@@ -42,14 +45,17 @@ and prints no result line):
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
-card's peak rate for their type.  K1, K2 and K3 do 64-bit or 32-bit
-integer arithmetic outside the tensor cores, for which the H100 data sheet
-states no rate; 67e12/s, its float32 rate outside the tensor cores, is the
-highest rate it states for such units, so the bound is a least time.  K4's
-MAC is int8 x int8 -> int32, which the data sheet rates at 1979e12
-operations/s dense on the tensor cores.  A kernel's ``launches`` in the
-JSON line is its count in the gate of the path that runs it (K1: the
-per-step path; K2 and K3: the default path; K4: the lanes path).
+card's peak rate for their type.  K1 does 64-bit integer arithmetic
+outside the tensor cores, for which the H100 data sheet states no rate;
+67e12/s, its float32 rate outside the tensor cores, is the highest rate it
+states for such units, so the bound is a least time.  K2's function is an
+int32 add a nonzero digit and column, counted the same way (its
+tensor-core form's int8 operations are printed beside it: they take
+longer).  K3's and K4's MAC is int8 x int8 -> int32, which the data sheet
+rates at 1979e12 operations/s dense on the tensor cores.  A kernel's
+``launches`` in the JSON line is its count in the gate of the path that
+runs it (K1: the per-step path; K2 and K3: the default path; K4: the lanes
+path).
 """
 
 import json
@@ -163,7 +169,7 @@ def keyswitch_inputs(rng, batch, dev):
     arrays, meta = dlwe.prepare_keyswitch_device(ks_a, ks_b, ks_cv, 2, dev)
     a = torch.from_numpy(
         rng.randint(-2**31, 2**31, (batch, in_size)).astype(np.int32)).to(dev)
-    return a, arrays["table"], meta
+    return a, arrays["ab_limbs"], meta
 
 
 def record_err(results, name, label, err):
@@ -186,18 +192,19 @@ def check_kernels(nft, dev, rng, results):
             torch.cuda.synchronize()
             record_err(results, "cmux_step", "K1 cmux_step %s vs plain, batch %d"
                        % (mode, batch), max_abs_err(got, want))
-    for batch in (256, MAIN_BATCH):
-        a, table, meta = keyswitch_inputs(rng, batch, dev)
-        kkw = dict(decomp_length=meta.decomp_length, log2_base=meta.log2_base)
-        got = ks.keyswitch_totals(a, table, **kkw)
-        want = ks.keyswitch_totals_plain(a, table, **kkw)
+    for batch in (100, MAIN_BATCH):     # 100: a partial sample tile
+        a, ab_limbs, meta = keyswitch_inputs(rng, batch, dev)
+        kkw = dict(out_size=meta.output_size,
+                   decomp_length=meta.decomp_length, log2_base=meta.log2_base)
+        got = ks.keyswitch_totals(a, ab_limbs, **kkw)
+        want = ks.keyswitch_totals_plain(a, ab_limbs, **kkw)
         torch.cuda.synchronize()
         record_err(results, "keyswitch", "K2 keyswitch vs plain, batch %d"
                    % batch, max_abs_err(got, want))
     steps, start, chunk = 8, 2, 4
     for mode in ("NTT", "FFT"):
         key = random_key(rng, steps, tp, dev, mode)
-        for batch in (64, MAIN_BATCH):
+        for batch in (101, MAIN_BATCH):     # 101: a partial sample group
             acc = random_acc(rng, batch, dev)
             bara_t = random_powers(rng, (steps, batch), dev)
             got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk, **kw)
@@ -406,6 +413,7 @@ def gate_ms_bit(nft, secret, vm, gate, args, want):
 
 def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
     from nufhe_tpu_torch.ops import blind_rotate as brc, cmux, keyswitch as ks
+    from nufhe_tpu_torch.ops import transform as tf
     b = TIMING_BATCH
     crng = nft.DeterministicRNG(SEED + 2)
     x, y, z = (rng.randint(0, 2, b).astype(bool) for _ in range(3))
@@ -452,12 +460,21 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
         plain = cuda_ms(lambda: brc.blind_rotate_chunk_plain(
             acc, bara_t, key, 0, CHUNK, **kw), 1)
         row_bytes = key[0].numel() * 8
-        bound, by = bound_ms(2 * acc.numel() * 4 + CHUNK * b * 4
-                             + CHUNK * row_bytes, CHUNK * cmux_ops(b))
+        n_bytes = 2 * acc.numel() * 4 + CHUNK * b * 4 + CHUNK * row_bytes
+        # the design's own operations: int8 multiply-adds of the MAC, 64
+        # slots x 256 inputs x Q outputs a sample and step (K4's count x
+        # CHUNK); beside it the int64 count of the first design
+        q_size = (tf.SHIFT_GROUPS_APPROX if mode == "FFT"
+                  else tf.SHIFT_GROUPS) * 2 * tf.R
+        n_ops = 2 * b * tf.L * 256 * q_size * CHUNK
+        bound, by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
+        old_bound, old_by = bound_ms(n_bytes, CHUNK * cmux_ops(b))
         print("K3 %s batch %d chunk %d: %.4f ms/launch (%d x K1 = %.4f ms, "
-              "ratio %.4f), plain %.2f ms, bound %.4f ms (%s)"
+              "ratio %.4f), plain %.2f ms, bound %.4f ms (%s; int8 MAC), "
+              "bound by the int64 count of the first design %.4f ms (%s)"
               % (mode, b, CHUNK, k3_ms, CHUNK, CHUNK * k1_ms[mode],
-                 k3_ms / (CHUNK * k1_ms[mode]), plain, bound, by))
+                 k3_ms / (CHUNK * k1_ms[mode]), plain, bound, by, old_bound,
+                 old_by))
         if mode == "NTT":
             results["blind_rotate_chunk"].update(
                 ms=k3_ms, plain_ms=plain, bound_ms=bound, bound_by=by,
@@ -465,37 +482,51 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
 
     timing_k4(dev, rng, cloud, cloud_fft, results, kw)
 
-    # K2 at the timing batch: the gate's keyswitch table, random input
+    # K2 at the timing batch: the gate's keyswitch operand, random input
     ks_arrays, meta = cloud.keyswitch_key.device(dev)
-    table = ks_arrays["table"]
+    ab_limbs = ks_arrays["ab_limbs"]
     a = torch.from_numpy(
         rng.randint(-2**31, 2**31, (b, meta.input_size)).astype(np.int32)).to(dev)
-    kkw = dict(decomp_length=meta.decomp_length, log2_base=meta.log2_base)
-    got = ks.keyswitch_totals(a, table, **kkw)
-    k2_ms = cuda_ms(lambda: ks.keyswitch_totals(a, table, **kkw), 5)
-    k2_plain = cuda_ms(lambda: ks.keyswitch_totals_plain(a, table, **kkw), 1)
+    kkw = dict(out_size=meta.output_size, decomp_length=meta.decomp_length,
+               log2_base=meta.log2_base)
+    got = ks.keyswitch_totals(a, ab_limbs, **kkw)
+    want = ks.keyswitch_totals_plain(a, ab_limbs, **kkw)
+    torch.cuda.synchronize()
+    record_err(results, "keyswitch", "K2 keyswitch vs plain, batch %d" % b,
+               max_abs_err(got, want))
+    k2_ms = cuda_ms(lambda: ks.keyswitch_totals(a, ab_limbs, **kkw), 5)
+    k2_plain = cuda_ms(lambda: ks.keyswitch_totals_plain(a, ab_limbs, **kkw),
+                       1)
     # library yardstick: float64 product of the one-hot digit matrix with
-    # the table (exact: every sum stays below 2^53), one-hot built outside
+    # the key entries recombined from the limbs (exact: every sum stays
+    # below 2^53), one-hot built outside
     digits = ks.keyswitch_digits(a, meta.decomp_length, meta.log2_base)
-    rows = table.shape[0]
+    table = ks.key_table(ab_limbs, meta.output_size)     # (rows, 3, out+2)
+    rows, width = table.shape[0], table.shape[2]
     onehot = torch.zeros((b, rows * 3), dtype=torch.float64, device=dev)
     nz = digits != 0
     cols = (torch.arange(rows, device=dev) * 3)[None, :] + digits - 1
     onehot.scatter_add_(1, torch.where(nz, cols, 0), nz.to(torch.float64))
-    table64 = table.reshape(rows * 3, -1).to(torch.float64)
+    table64 = table.reshape(rows * 3, width).to(torch.float64)
+    del table
     lib = torch.mm(onehot, table64)
     lib_ms = cuda_ms(lambda: torch.mm(onehot, table64), 3)
     lib_i32 = ((lib.to(torch.int64) + 2**31) % 2**32 - 2**31)
-    if not torch.equal(lib_i32, got[:, :table.shape[2]].to(torch.int64)):
+    if not torch.equal(lib_i32, got.to(torch.int64)):
         raise AssertionError("library yardstick disagrees with K2")
     count = int(got[:, -1].to(torch.int64).sum().item())
-    k2_bound, k2_by = bound_ms(a.numel() * 4 + table.numel() * 4
-                               + got.numel() * 4, count * table.shape[2])
+    # the function's own work: an int32 add a nonzero digit and column
+    # [a | b], against the tensor-core form's int8 operations
+    k2_bound, k2_by = bound_ms(a.numel() * 4 + ab_limbs.numel()
+                               + got.numel() * 4, count * (width - 1))
+    mma_ops = 2 * b * 3 * rows * ab_limbs.shape[1] * ab_limbs.shape[3]
     results["keyswitch"].update(ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound,
                                 bound_by=k2_by, library_ms=lib_ms)
     print("K2 batch %d: %.4f ms/launch, plain %.2f ms, torch.mm f64 one-hot "
-          "%.4f ms, bound %.4f ms (%s)"
-          % (b, k2_ms, k2_plain, lib_ms, k2_bound, k2_by))
+          "%.4f ms, bound %.4f ms (%s); the tensor-core form's %.4g int8 "
+          "operations take %.4f ms at the dense int8 rate"
+          % (b, k2_ms, k2_plain, lib_ms, k2_bound, k2_by, mma_ops,
+             mma_ops / INT8_OPS_PER_S * 1e3))
     del onehot, table64, lib
 
 

@@ -1,30 +1,62 @@
-// LWE keyswitch totals for Hopper (base 4 digits).
+// LWE keyswitch totals for Hopper (K2): a one-hot product on the int8
+// tensor cores (base 4 digits).
 //
-//   totals[s] = [ sum_r KS[r, digit(s, r)] (a columns and b column) | count ]
+//   totals[s, c] = sum_{v=1..3} sum_{limb<4} sum_r
+//                    [digit(s, r) == v] * ab_limbs[v-1, limb, r, c] << 8*limb
 //
 // over the rows r = j * in_size + i (l-major), digit(s, r) =
-// ((a[s, i] + prec) >> (32 - (j+1)*2)) & 3, where digit 0 adds nothing and
-// the last column counts the nonzero digits; int32 sums wrap mod 2^32.
+// ((a[s, i] + prec) >> (32 - (j+1)*2)) & 3; sums wrap mod 2^32.  Column
+// out + 1 of limb plane 0 holds a 1, so it counts the nonzero digits.
 // Replaces the TPU kernel nufhe_tpu/ops/pallas/keyswitch.py::keyswitch_mac
-// (an int8 one-hot matrix product there); this is the gather-accumulate form
-// of the nuFHE GPU keyswitch (nufhe/lwe_gpu.mako).
+// and reads its operand, the JAX package's ab_limbs, bit for bit.
 //
 // Layout:
-//   a      (B, in_size) int32
-//   table  (rows, 3, out + 1) int32: [a | b] of the key for digits 1..3
-//   out    (B, out + 2) int32
+//   a         (B, in_size) int32, in_size % 64 == 0
+//   ab_limbs  (3, 4, rows, n_pad) int8, n_pad % 32 == 0
+//   out       (B, out_w) int32, out_w = out + 2 <= n_pad: [a | b | count]
 //
-// Design: a block owns 32 samples and 512 output columns (two per thread).
-// It first packs the 2-bit digits of its 32 samples into one 64-bit word per
-// row in shared memory (rows * 8 bytes, 64 KB at rows = 8192).  Then each
-// thread walks the rows: the digit word is the same for the whole block, so
-// the branch on a zero digit is uniform and the table reads of a warp are
-// 32 neighbouring columns of one key row.
+// The product: M = samples, N = 4 limbs x columns, K = 3 digit values x
+// rows, by mma.sync m16n8k32 s8 x s8 -> s32.  Each limb's sum is at most
+// rows * 128 = 2^20 in absolute value, so the int32 sums are exact; the
+// epilogue recombines lo = sum_limb acc_limb << 8*limb in uint32 (wrapping
+// on purpose) and writes each output once.
 //
-// Bound: B * rows * (out + 1) int32 adds for the nonzero digits (3/4 of them
-// on random input) plus the table's 49 MB at the default sizes, read once
-// from device memory and then from L2 once per block of 32 samples: the adds
-// bound it.
+// Design: a block owns 128 samples and 32 columns (all 4 limbs of each, so
+// the recombination happens in registers); 8 warps, 2 (samples) x 4
+// (columns), a warp 64 samples x 8 columns x 4 limbs = 4 x 4 mma tiles.
+// The block walks the rows in stages of 64 rows at one j (16 i-tiles x l
+// stages):
+//   - A, the one-hot matrix, never touches device memory.  For each i-tile
+//     the block copies a (128 x 64) tile of a into shared memory
+//     (cp.async, one i-tile ahead) and packs it into digit bytes: for 4
+//     consecutive i of a sample, byte 3 of each (a + prec) word gives the
+//     digits j = 0..3 and byte 2 the digits j = 4..7 (two words, P and Q).
+//     A thread's A fragment (4 rows of one sample) is one such word,
+//     shifted: lo = bit 0 and hi = bit 1 of the digit in each byte, and
+//     the one-hot bytes of v = 1, 2, 3 are lo & ~hi, ~lo & hi and lo & hi
+//     (masked to bit 0): 2 shifts and 3 logic ops give 3 A registers.
+//   - B, the key, is column-major for the mma (4 consecutive rows of one
+//     column in a register).  ab_limbs is row-major, so each stage's tile
+//     (3 x 4 x 64 rows x 32 columns, 24 KB) is copied one stage ahead into
+//     shared memory as it lies (cp.async, 16 bytes a copy), then
+//     transposed in 4-row x 4-column byte blocks (8 byte permutes each)
+//     into a double buffer whose row slots and words are swizzled so that
+//     the stores and the 8-byte fragment loads are free of bank conflicts.
+//     (A first version loaded the blocks with 4-byte loads straight into
+//     registers: 16 L1 sectors a warp load, 6.5 ms a launch.)
+//
+// Shared memory: 2 x 24 KB key stages, 30 KB of raw key tile, 2 x 24 KB
+// digit-byte planes (128 samples x 48 words, 32 used, padded against bank
+// conflicts), 32 KB of a: 158 KB, one block an SM.
+//
+// Bound (default sizes, B = 2^14): the function is B * rows * (out + 1)
+// int32 adds for the nonzero digits (3/4 of them on random input), 0.75 ms
+// at the 67e12/s the data sheet gives for non-tensor units; the tensor-core
+// form does 2 * B * 3*rows * 4*n_pad = 1.65e12 int8 operations, 0.83 ms at
+// the dense int8 rate of 1979e12/s.  L2 traffic: the 50 MB operand once per
+// block row of 128 samples, 2^14 / 128 x 50 MB = 6.4 GB, plus a tile of a
+// per column tile, 16 x 64 MB = 1 GB; device memory: the operand once (a
+// wave of blocks shares one column slice), a and the output.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,86 +64,285 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSamples = 32;             // samples per block: 2 bits each
-constexpr int kCols = 2 * kThreads;      // columns per block
+constexpr int kBM = 128;       // samples a block
+constexpr int kBC = 32;        // output columns a block (x 4 limbs = N 128)
+constexpr int kTI = 64;        // i values a stage: two K-chunks of 32 rows
+constexpr int kNV = 3;         // nonzero digit values
+constexpr int kLimbs = 4;
+constexpr int kPQStride = 48;  // words a sample in a digit-byte plane
+constexpr int kChunkWords = kBC * 8;                          // 32 cols x 32 rows
+constexpr int kTransWords = kNV * kLimbs * 2 * kChunkWords;   // 24 KB
+constexpr int kPQWords = kBM * kPQStride;                     // 24 KB
+constexpr int kRawAWords = kBM * kTI;                         // 32 KB
+constexpr int kRawBRows = kNV * kLimbs * kTI;                 // 768
+constexpr int kRawBWords = kRawBRows / 4 * 5 * (kBC / 4);      // 30 KB
+constexpr int kSmemBytes =
+    (2 * kTransWords + 2 * kPQWords + kRawAWords + kRawBWords) *
+    (int)sizeof(uint32_t);
+constexpr int kBUnits = kRawBRows / 4 * (kBC / 4) / kThreads;   // 6
+constexpr int kBCopies = kRawBRows * kBC / 16 / kThreads;       // 6
+constexpr int kAUnits = kBM * (kTI / 4) / kThreads;                      // 8
+constexpr uint32_t kOnes = 0x01010101u;
 
-__global__ void __launch_bounds__(kThreads)
-keyswitch_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ table,
+// Row slot of column n in a (v, limb, chunk) block of the key stage: a
+// permutation inside each group of 4, so that the 4 columns of a fragment
+// load and 4 column groups of a store fall in different 8-bank groups.
+__device__ __forceinline__ int slot(int n, int c) {
+  return (n & ~3) | ((n + (n >> 2) + c) & 3);
+}
+
+// and the word order inside a slot: columns 16..31 swap the halves, so
+// that a store's 8 column groups and 4 row quads hit 32 different banks
+// (even, so an 8-byte fragment load stays in order)
+__device__ __forceinline__ int swz(int n) { return ((n >> 4) & 1) << 2; }
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes to shared memory, or 16 zero bytes when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+keyswitch_kernel(const int32_t* __restrict__ a, const int8_t* __restrict__ key,
                  int32_t* __restrict__ out, int batch, int in_size,
-                 int decomp_length, int out1) {
-  extern __shared__ unsigned long long digits[];
-  const int rows = in_size * decomp_length;
+                 int decomp_length, int n_pad, int out_w) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* trans = smem;                     // [2][kTransWords]
+  uint32_t* pq = smem + 2 * kTransWords;      // [2][kPQWords]
+  uint32_t* raw_a = pq + 2 * kPQWords;        // [kBM][kTI]
+  uint32_t* raw_b = raw_a + kRawAWords;       // [kRawBWords]
+
   const int tid = threadIdx.x;
-  const int s0 = blockIdx.x * kSamples;
-  const int ns = min(kSamples, batch - s0);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int wm = warp & 1;
+  const int wn = warp >> 1;
+  const int s0 = blockIdx.x * kBM;
+  const int col0 = blockIdx.y * kBC;
+  const int rows = in_size * decomp_length;
+  const int n_tiles = in_size / kTI;
+  const int n_stages = n_tiles * decomp_length;
   const uint32_t prec = 1u << (32 - (1 + 2 * decomp_length));
 
-  for (int r = tid; r < rows; r += kThreads) {
-    const int j = r / in_size;
-    const int i = r - j * in_size;
-    const int sh = 32 - (j + 1) * 2;
-    unsigned long long w = 0;
-    for (int s = 0; s < ns; ++s) {
-      const uint32_t x = (uint32_t)a[(size_t)(s0 + s) * in_size + i] + prec;
-      w |= (unsigned long long)((x >> sh) & 3u) << (2 * s);
+  // the a tile of i-tile t -> raw_a (zeros past the batch)
+  auto load_a = [&](int t) {
+#pragma unroll
+    for (int q = 0; q < kAUnits; ++q) {
+      const int k = tid + kThreads * q;
+      const int s = k >> 4;
+      const int grp = k & 15;
+      const bool ok = s0 + s < batch;
+      const int32_t* src =
+          ok ? a + (size_t)(s0 + s) * in_size + t * kTI + 4 * grp : a;
+      cp_async16(raw_a + s * kTI + 4 * grp, src, ok);
     }
-    digits[r] = w;
-  }
+  };
+
+  // raw_a -> digit bytes: P (digits j = 0..3, byte 3) and Q (j = 4..7,
+  // byte 2) of 4 consecutive i, byte b from i = 4*grp + b
+  auto build_pq = [&](uint32_t* dst) {
+#pragma unroll
+    for (int q = 0; q < kAUnits; ++q) {
+      const int k = tid + kThreads * q;
+      const int s = k >> 4;
+      const int grp = k & 15;
+      const uint4 x =
+          *reinterpret_cast<const uint4*>(raw_a + s * kTI + 4 * grp);
+      const uint32_t u01 = __byte_perm(x.x + prec, x.y + prec, 0x7362);
+      const uint32_t u23 = __byte_perm(x.z + prec, x.w + prec, 0x7362);
+      uint2 w;
+      w.x = __byte_perm(u01, u23, 0x7632);
+      w.y = __byte_perm(u01, u23, 0x5410);
+      *reinterpret_cast<uint2*>(dst + s * kPQStride + 2 * grp) = w;
+    }
+  };
+
+  // stage st's key tile -> raw_b, row-major, 16 bytes a copy: row k
+  // (k = vl*64 + r, plane vl = (v-1)*4 + limb, r < 64) at word
+  // (k + k/4) * 8, an empty row after every 4 against bank conflicts
+  auto load_b = [&](int st) {
+    const int t = st / decomp_length;
+    const int r0 = (st - t * decomp_length) * in_size + t * kTI;
+#pragma unroll
+    for (int q = 0; q < kBCopies; ++q) {
+      const int u = tid + kThreads * q;
+      const int k = u >> 1;
+      const int h = u & 1;
+      const int vl = k >> 6;
+      const int8_t* src = key + ((size_t)vl * rows + r0 + (k & 63)) * n_pad
+                          + col0 + 16 * h;
+      cp_async16(raw_b + (k + (k >> 2)) * 8 + 4 * h, src, true);
+    }
+  };
+
+  // raw_b -> key stage st % 2 in shared memory, column-major: block
+  // (vl, c) holds rows 32c .. 32c+31; the word at slot(n, c)*8 + (pw ^ swz(n))
+  // holds rows 32c + 4pw .. +3 of column n, byte k from row 32c + 4pw + k.
+  // Unit (vl, rq, cq): rows 4rq..4rq+3, columns 4cq..4cq+3, transposed
+  // with 8 byte permutes.
+  auto store_b = [&](int st) {
+    uint32_t* dst = trans + (st & 1) * kTransWords;
+#pragma unroll
+    for (int q = 0; q < kBUnits; ++q) {
+      const int u = tid + kThreads * q;
+      const int cq = u & 7;
+      const int rq = (u >> 3) & 15;
+      const int vl = u >> 7;
+      const int k0 = vl * 64 + 4 * rq;
+      const uint32_t* src = raw_b + (k0 + (k0 >> 2)) * 8 + cq;
+      const uint32_t r0 = src[0], r1 = src[8], r2 = src[16], r3 = src[24];
+      const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
+      const uint32_t t1 = __byte_perm(r0, r1, 0x7362);
+      const uint32_t t2 = __byte_perm(r2, r3, 0x5140);
+      const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
+      const int c = rq >> 3;
+      const int pw = (rq & 7) ^ swz(4 * cq);
+      uint32_t* base = dst + (vl * 2 + c) * kChunkWords + pw;
+      base[slot(4 * cq + 0, c) * 8] = __byte_perm(t0, t2, 0x5410);
+      base[slot(4 * cq + 1, c) * 8] = __byte_perm(t0, t2, 0x7632);
+      base[slot(4 * cq + 2, c) * 8] = __byte_perm(t1, t3, 0x5410);
+      base[slot(4 * cq + 3, c) * 8] = __byte_perm(t1, t3, 0x7632);
+    }
+  };
+
+  int acc[4][kLimbs][4];
+#pragma unroll
+  for (int mf = 0; mf < 4; ++mf)
+#pragma unroll
+    for (int f = 0; f < kLimbs; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mf][f][e] = 0;
+
+  load_a(0);
+  load_b(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  build_pq(pq);
+  store_b(0);
   __syncthreads();
 
-  // a column below out1 reads the table, column out1 counts, others idle
-  const int col0 = blockIdx.y * kCols + tid;
-  const int col1 = col0 + kThreads;
-  const bool tab0 = col0 < out1, tab1 = col1 < out1;
-  const uint32_t one0 = col0 == out1, one1 = col1 == out1;
-  uint32_t acc0[kSamples], acc1[kSamples];
-#pragma unroll
-  for (int s = 0; s < kSamples; ++s) acc0[s] = acc1[s] = 0;
+  for (int st = 0; st < n_stages; ++st) {
+    const int t = st / decomp_length;
+    const int j = st - t * decomp_length;
+    // the copies for the next stage (and, at a tile's first stage, the
+    // next tile's a) run while this stage computes
+    if (st + 1 < n_stages) load_b(st + 1);
+    if (j == 0 && t + 1 < n_tiles) load_a(t + 1);
+    cp_async_commit();
 
-  for (int r = 0; r < rows; ++r) {
-    const unsigned long long w = digits[r];
-    if (w == 0) continue;
-    const int32_t* trow = table + (size_t)r * 3 * out1;
+    const uint32_t* tb = trans + (st & 1) * kTransWords;
+    const uint32_t* pqb = pq + (t & 1) * kPQWords;
+    const int sh = 6 - 2 * (j & 3);
+    const bool use_q = j >= 4;
 #pragma unroll
-    for (int s = 0; s < kSamples; ++s) {
-      const int d = (int)((w >> (2 * s)) & 3u);
-      if (d) {
-        const int32_t* e = trow + (d - 1) * out1;
-        acc0[s] += tab0 ? (uint32_t)__ldg(e + col0) : one0;
-        acc1[s] += tab1 ? (uint32_t)__ldg(e + col1) : one1;
+    for (int c = 0; c < 2; ++c) {
+      // B fragments of this warp's 8 columns, every digit value and limb:
+      // rows 8tig..8tig+3 (logical k tig*4..) and 8tig+4..+7 (k 16+tig*4..)
+      const int n = 8 * wn + g;
+      const int bslot = slot(n, c) * 8 + ((2 * tig) ^ swz(n));
+      uint2 bf[kNV][kLimbs];
+#pragma unroll
+      for (int v = 0; v < kNV; ++v)
+#pragma unroll
+        for (int f = 0; f < kLimbs; ++f)
+          bf[v][f] = *reinterpret_cast<const uint2*>(
+              tb + ((v * kLimbs + f) * 2 + c) * kChunkWords + bslot);
+#pragma unroll
+      for (int mf = 0; mf < 4; ++mf) {
+        const int sl = 64 * wm + 16 * mf + g;
+        const uint4 plo = *reinterpret_cast<const uint4*>(
+            pqb + sl * kPQStride + 16 * c + 4 * tig);
+        const uint4 phi = *reinterpret_cast<const uint4*>(
+            pqb + (sl + 8) * kPQStride + 16 * c + 4 * tig);
+        // a0: sample g rows 8tig..+3, a1: sample g+8, a2/a3: rows +4..+7
+        const uint32_t w[4] = {use_q ? plo.y : plo.x, use_q ? phi.y : phi.x,
+                               use_q ? plo.w : plo.z, use_q ? phi.w : phi.z};
+        uint32_t af[kNV][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t lo = w[r] >> sh;
+          const uint32_t hi = w[r] >> (sh + 1);
+          af[0][r] = lo & ~hi & kOnes;      // digit 1
+          af[1][r] = ~lo & hi & kOnes;      // digit 2
+          af[2][r] = lo & hi & kOnes;       // digit 3
+        }
+#pragma unroll
+        for (int v = 0; v < kNV; ++v)
+#pragma unroll
+          for (int f = 0; f < kLimbs; ++f)
+            mma_s8(acc[mf][f], af[v], bf[v][f].x, bf[v][f].y);
       }
     }
+
+    cp_async_wait_all();
+    __syncthreads();
+    if (st + 1 < n_stages) store_b(st + 1);
+    if (j == decomp_length - 1 && t + 1 < n_tiles)
+      build_pq(pq + ((t + 1) & 1) * kPQWords);
+    __syncthreads();
   }
 
-  const int width = out1 + 1;
+  // epilogue: thread holds columns 8wn + 2tig, +1 of samples g and g+8 of
+  // each m tile, every limb
 #pragma unroll
-  for (int s = 0; s < kSamples; ++s) {
-    if (s < ns) {
-      uint32_t* row = reinterpret_cast<uint32_t*>(out) + (size_t)(s0 + s) * width;
-      if (col0 < width) row[col0] = acc0[s];
-      if (col1 < width) row[col1] = acc1[s];
+  for (int mf = 0; mf < 4; ++mf) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = s0 + 64 * wm + 16 * mf + g + 8 * h;
+      if (s >= batch) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = col0 + 8 * wn + 2 * tig + e;
+        if (col >= out_w) continue;
+        uint32_t v = 0;
+#pragma unroll
+        for (int f = 0; f < kLimbs; ++f)
+          v += (uint32_t)acc[mf][f][2 * h + e] << (8 * f);
+        out[(size_t)s * out_w + col] = (int32_t)v;
+      }
     }
   }
 }
 
 }  // namespace
 
-extern "C" int keyswitch_launch(const void* a, const void* table, void* out,
+extern "C" int keyswitch_launch(const void* a, const void* ab_limbs, void* out,
                                 int batch, int in_size, int decomp_length,
-                                int out_size, int device, void* stream) {
-  const int rows = in_size * decomp_length;
-  const int smem = rows * (int)sizeof(unsigned long long);
+                                int n_pad, int out_w, int device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(
-      keyswitch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      keyswitch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const int out1 = out_size + 1;
   if (batch > 0) {
-    dim3 grid((batch + kSamples - 1) / kSamples, (out1 + 1 + kCols - 1) / kCols);
-    keyswitch_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)a, (const int32_t*)table, (int32_t*)out, batch,
-        in_size, decomp_length, out1);
+    const dim3 grid((batch + kBM - 1) / kBM, n_pad / kBC);
+    keyswitch_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+        (const int32_t*)a, (const int8_t*)ab_limbs, (int32_t*)out, batch,
+        in_size, decomp_length, n_pad, out_w);
   }
   return (int)cudaGetLastError();
 }

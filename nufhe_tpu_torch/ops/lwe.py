@@ -63,16 +63,31 @@ def lwe_noiseless_trivial(mus, lwe_size: int):
     return a, mus, cv
 
 
+KS_LIMB_BITS = 8
+KS_LIMBS = 4
+
+
+def ks_n_pad(output_size):
+    """Columns of the packed key: the out 'a' columns, the 'b' column and
+    the count marker (column out + 1), rounded up to 128."""
+    return -(-(output_size + 2) // 128) * 128
+
+
 def prepare_keyswitch_device(ks_a, ks_b, ks_cv, log2_base: int, device):
-    """Pack the keyswitch key into K2's table.
+    """Pack the keyswitch key into K2's operand, the JAX package's
+    ``ab_limbs`` bit for bit (the host branch of
+    ``nufhe_tpu/ops/lwe.py::prepare_keyswitch_device``).
 
     :param ks_a: (in_size, l, base, out) int32 numpy; ``ks_b``: (in_size, l,
         base); ``ks_cv``: (in_size, l, base) float32.
-    :returns: ``(arrays, meta)``: ``arrays['table']`` is the (rows, base-1,
-        out+1) int32 tensor of [a | b] entries for digits 1..base-1 in
-        l-major row order (r = j * in_size + i); digit 0's entries are the
-        trivial zero encryption and are dropped.  ``arrays['cv_scale']`` is
-        the variance of one nonzero-digit entry.
+    :returns: ``(arrays, meta)``: ``arrays['ab_limbs']`` is the
+        (base-1, KS_LIMBS, rows, n_pad) int8 tensor: for each nonzero digit
+        value v, the [a | b] entries in l-major row order (r = j * in_size
+        + i) split into balanced radix-2^8 limbs, zero-padded to
+        :func:`ks_n_pad` columns, with a 1 in column out + 1 of limb plane 0
+        (the nonzero-digit count rides the same sums).  Digit 0's entries
+        are the trivial zero encryption and are dropped.
+        ``arrays['cv_scale']`` is the variance of one nonzero-digit entry.
     """
     ks_a, ks_b, ks_cv = (np.asarray(x) for x in (ks_a, ks_b, ks_cv))
     input_size, decomp_length, base, output_size = ks_a.shape
@@ -90,12 +105,21 @@ def prepare_keyswitch_device(ks_a, ks_b, ks_cv, log2_base: int, device):
             "keyswitch cv table is not constant on nonzero digits; the "
             "count-based cv does not apply")
 
+    rows = input_size * decomp_length
     ab = np.concatenate([ks_a, ks_b[..., None]], axis=-1)   # (in, l, base, out+1)
-    ab = ab.transpose(1, 0, 2, 3)[:, :, 1:]                 # (l, in, base-1, out+1)
-    table = np.ascontiguousarray(
-        ab.reshape(decomp_length * input_size, base - 1, output_size + 1),
-        dtype=np.int32)
-    arrays = dict(table=torch.from_numpy(table).to(device), cv_scale=cv_scale)
+    ab = ab.transpose(2, 1, 0, 3).reshape(base, rows, output_size + 1)[1:]
+    v = ab.astype(np.int64)
+    limbs = []
+    for _ in range(KS_LIMBS):
+        l0 = ((v + 128) & 255) - 128
+        limbs.append(l0.astype(np.int8))
+        v = (v - l0) >> KS_LIMB_BITS
+    padded = np.zeros((base - 1, KS_LIMBS, rows, ks_n_pad(output_size)),
+                      np.int8)
+    padded[..., :output_size + 1] = np.stack(limbs, axis=1)
+    padded[:, 0, :, output_size + 1] = 1
+    arrays = dict(ab_limbs=torch.from_numpy(padded).to(device),
+                  cv_scale=cv_scale)
     meta = KeyswitchMeta(base=base, decomp_length=decomp_length,
                          log2_base=log2_base, input_size=input_size,
                          output_size=output_size)
@@ -115,8 +139,8 @@ def lwe_keyswitch(ks_arrays, ks_meta: KeyswitchMeta, source_a, source_b,
     batch_shape = source_b.shape
     a2 = source_a.reshape(-1, ks_meta.input_size).contiguous()
     totals = ks.keyswitch_totals(
-        a2, ks_arrays["table"], decomp_length=ks_meta.decomp_length,
-        log2_base=ks_meta.log2_base)
+        a2, ks_arrays["ab_limbs"], out_size=out_size,
+        decomp_length=ks_meta.decomp_length, log2_base=ks_meta.log2_base)
     result_a = wrap_i32(-totals[:, :out_size].to(torch.int64))
     result_b = wrap_i32(source_b.reshape(-1).to(torch.int64)
                         - totals[:, out_size].to(torch.int64))

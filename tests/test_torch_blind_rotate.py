@@ -197,3 +197,86 @@ def test_wrappers_reject_bad_input():
                            TParams().tgsw_params, exact=True)
     assert brc.blind_rotate_chunk(acc, bara_t, rkey, 0, 3, **KW).shape \
         == acc.shape
+
+
+def _k3_operand(key_row):
+    """K3's on-chip key operand rule, written as the kernel writes it: the
+    int64 key row (G, O, L, R) (or (2, G, O, L, R) rounded), any
+    representative mod 2^38, -> two-sided limbs (exact: vlo = balanced
+    x mod 64, then the 4 balanced radix-2^8 digits of (x - vlo) / 64 mod
+    2^32 as the bytes of (y + 0x80808080) ^ 0x80808080; side 1 from -x;
+    rounded: the digits of (x + 32) >> 6 of each stored side) -> per (g, o,
+    slot, limb) a reversed 64-byte row, byte 31 - r the limb of side 0 at
+    rotation r and byte 63 - r that of side 1 -> the (L, 256, Q) operand
+    whose entry (c = g*64 + i*32 + u, q = s*64 + o*32 + k) is byte
+    31 - k + u of the row that digit limb i meets in group s.  Natural slot
+    order (slot t is frequency t)."""
+    def radix256(y):
+        word = (((y & 0xFFFFFFFF) + 0x80808080) & 0xFFFFFFFF) ^ 0x80808080
+        digits = [(word >> (8 * q)) & 255 for q in range(4)]
+        return [b - ((b & 128) << 1) for b in digits]      # signed bytes
+
+    def split_exact(x):
+        vlo = ((x + 32) & 63) - 32
+        return [vlo] + radix256((x - vlo) >> 6) + [4 * vlo]
+
+    rounded = key_row.dim() == 5
+    if rounded:
+        s0 = radix256((key_row[0] + 32) >> 6)
+        s1 = radix256((key_row[1] + 32) >> 6)
+        meets = {(0, s): s for s in range(4)}
+        meets.update({(1, s): s - 1 for s in range(1, 4)})
+    else:
+        s0, s1 = split_exact(key_row), split_exact(-key_row)
+        meets = {(0, s): s for s in range(5)}
+        meets.update({(1, 1): 5, (1, 2): 1, (1, 3): 2, (1, 4): 3})
+    g_sz, o_sz, l_sz, r_sz = s0[0].shape
+    rows = torch.zeros((g_sz, o_sz, l_sz, len(s0), 64), dtype=torch.int64)
+    lane = torch.arange(r_sz)
+    for limb in range(len(s0)):
+        rows[:, :, :, limb, 31 - lane] = s0[limb]
+        rows[:, :, :, limb, 63 - lane] = s1[limb]
+    n_groups = 4 if rounded else 5
+    k = torch.arange(r_sz)
+    at = 31 - k[:, None] + k[None, :]                       # [k, u]
+    op = torch.zeros((l_sz, g_sz, 2, r_sz, n_groups, o_sz, r_sz),
+                     dtype=torch.int64)
+    for (i, s), limb in meets.items():
+        vals = rows[:, :, :, limb][..., at]                 # (G, O, L, k, u)
+        op[:, :, i, :, s] = vals.permute(2, 0, 4, 1, 3)     # (L, G, u, O, k)
+    return op.reshape(l_sz, g_sz * 2 * r_sz, n_groups * o_sz * r_sz).to(
+        torch.int8)
+
+
+@pytest.mark.parametrize("transform_type", ["NTT", "FFT"])
+def test_k3_operand_rule_matches_build_mac_rhs(transform_type):
+    """The rule K3 applies on chip to the int64 key gives the TPU's MAC
+    operand (the port's build_mac_rhs of key_limbs_host) bit for bit, slot
+    order permuted, on a key with rounding ties."""
+    _, _, bk_coeff = _rounded_row_inputs(17, 1)
+    exact = transform_type == 'NTT'
+    key = ttf.bootstrap_key_transformed(bk_coeff, "cpu", transform_type)
+    hat = transform_ref.forward(bk_coeff)[0]
+    limbs = ttf.key_limbs_host(hat, exact=exact)
+    want = ttf.build_mac_rhs(torch.from_numpy(
+        limbs.reshape((MASK1 * TP.decomp_length, MASK1, 64, 32)
+                      + limbs.shape[-2:])))
+    got = _k3_operand(key[0])
+    assert got.shape == want.shape
+    assert torch.equal(got[torch.from_numpy(ttf.BITREV_L)], want)
+
+
+@pytest.mark.parametrize("transform_type", ["NTT", "FFT"])
+def test_k3_operand_step_equals_cmux_step(transform_type):
+    """One step in limb form on K3's operand (the lanes engine's step, with
+    the q-layout around it) equals the plain K1 step bit for bit."""
+    from nufhe_tpu_torch.ops import flat_engine as fe
+    accum, powers, bk_coeff = _rounded_row_inputs(19, 6)
+    key = ttf.bootstrap_key_transformed(bk_coeff, "cpu", transform_type)
+    op = _k3_operand(key[0])[torch.from_numpy(ttf.BITREV_L)]
+    acc, p = torch.from_numpy(accum), torch.from_numpy(powers)
+    acc_q = fe.q_from_n(acc).reshape(acc.shape[0], -1)
+    got = fe.external_step(acc_q, p, op, mask1=MASK1,
+                           decomp_length=TP.decomp_length, **KW)
+    got = fe.n_from_q(got.reshape(acc.shape))
+    assert torch.equal(got, cmux.cmux_step_plain(acc, p, key[0], **KW))

@@ -46,8 +46,9 @@ def test_keyswitch_totals_match_pallas_interpret(in_size, l, out_size, bsz):
         lane_tile=min(128, bsz), interpret=True))
 
     launches = tks.launches
-    got = tks.keyswitch_totals(torch.from_numpy(a2), t_arrays["table"],
-                               decomp_length=l, log2_base=2).numpy()
+    got = tks.keyswitch_totals(torch.from_numpy(a2), t_arrays["ab_limbs"],
+                               out_size=out_size, decomp_length=l,
+                               log2_base=2).numpy()
     assert tks.launches == launches     # CPU tensors take the plain version
     assert got.shape == (bsz, out_size + 2)
     assert np.array_equal(got, want[:, :out_size + 2])
@@ -96,3 +97,55 @@ def test_prepare_keyswitch_rejects_bad_keys():
         tlwe.prepare_keyswitch_device(ks_a, ks_b, bad_cv, 2, "cpu")
     with pytest.raises(ValueError):
         tlwe.prepare_keyswitch_device(ks_a, ks_b, ks_cv, 3, "cpu")
+
+
+@pytest.mark.parametrize("in_size,l,out_size,bsz", SIZES)
+def test_ab_limbs_match_jax(in_size, l, out_size, bsz):
+    """The port's K2 operand is the JAX package's ``ab_limbs`` bit for bit."""
+    _, ks_a, ks_b, ks_cv = _key(in_size + 2, in_size, l, 4, out_size)
+    j_arrays, _ = jlwe.prepare_keyswitch_device(ks_a, ks_b, ks_cv, 2)
+    t_arrays, _ = tlwe.prepare_keyswitch_device(ks_a, ks_b, ks_cv, 2, "cpu")
+    want = np.asarray(j_arrays["ab_limbs"])
+    got = t_arrays["ab_limbs"].numpy()
+    assert got.dtype == np.int8 and got.shape == want.shape
+    assert got.shape == (3, 4, in_size * l, tlwe.ks_n_pad(out_size))
+    assert np.array_equal(got, want)
+
+
+def _k2_mirror(a, ab_limbs, out_size, l):
+    """K2's arithmetic in PyTorch, as the kernel writes it: the digits of
+    row j from byte 3 (j < 4) or byte 2 (j >= 4) of a + prec, shifted by
+    6 - 2*(j % 4); one-hot bytes lo & ~hi, ~lo & hi, lo & hi for v = 1, 2,
+    3; one int32 sum a limb (exact: |sum| <= rows * 128); the limbs
+    recombined in uint32."""
+    prec = 2 ** (32 - (1 + 2 * l))
+    x = (a.to(torch.int64) + prec) & 0xFFFFFFFF
+    onehot = [[], [], []]
+    for j in range(l):
+        byte = (x >> (24 if j < 4 else 16)) & 255
+        sh = 6 - 2 * (j % 4)
+        lo, hi = (byte >> sh) & 1, (byte >> (sh + 1)) & 1
+        for v, oh in enumerate((lo & (1 - hi), (1 - lo) & hi, lo & hi)):
+            onehot[v].append(oh)
+    onehot = [torch.cat(oh, dim=1).to(torch.float64) for oh in onehot]
+    total = torch.zeros((a.shape[0], ab_limbs.shape[-1]), dtype=torch.int64)
+    for limb in range(4):
+        s = sum(oh @ ab_limbs[v, limb].to(torch.float64)
+                for v, oh in enumerate(onehot)).to(torch.int64)
+        assert s.abs().max() <= ab_limbs.shape[2] * 128
+        total = (total + ((s & 0xFFFFFFFF) << (8 * limb))) & 0xFFFFFFFF
+    total = total[:, :out_size + 2]
+    return torch.where(total >= 2**31, total - 2**32, total).to(torch.int32)
+
+
+@pytest.mark.parametrize("in_size,l,out_size,bsz", SIZES)
+def test_k2_mirror_matches_plain(in_size, l, out_size, bsz):
+    rng, ks_a, ks_b, ks_cv = _key(in_size + 3, in_size, l, 4, out_size)
+    t_arrays, _ = tlwe.prepare_keyswitch_device(ks_a, ks_b, ks_cv, 2, "cpu")
+    a = torch.from_numpy(
+        rng.randint(-2**31, 2**31, (bsz, in_size)).astype(np.int32))
+    want = tks.keyswitch_totals_plain(a, t_arrays["ab_limbs"],
+                                      out_size=out_size, decomp_length=l,
+                                      log2_base=2)
+    got = _k2_mirror(a, t_arrays["ab_limbs"], out_size, l)
+    assert torch.equal(got, want)
