@@ -11,14 +11,18 @@ and prints no result line):
    per source, all at once) and print ``ptxas``'s register/spill lines;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    at a small or ragged batch and at the gate paths' batch (4096): K1 (CMUX
-   step) with the exact and the rounded key, K2 (keyswitch, int8 tensor
-   cores, on the JAX package's ``ab_limbs``; batch 100 leaves a partial
-   sample tile, and at 2^14 too), K3 (chunked rotation on the int8 tensor
-   cores, 4 steps from step 2, both key forms, batch 101 leaves a partial
-   sample group) also against 4 K1 launches, and K4 (lanes-layout CMUX step
-   on the TPU's int8 key operand, both key forms, also at a batch of 100
-   that leaves a partial MAC tile) also as 4 steps against 4 K1 launches on
-   the same coefficient key;
+   step, K3's template at a chunk of one step) with the exact and the
+   rounded key, K2 (keyswitch, int8 tensor cores, on the JAX package's
+   ``ab_limbs``, at base 4 and base 8; batch 100 leaves a partial sample
+   tile), K3 (chunked rotation on the int8 tensor cores, 4 steps from step
+   2, both key forms, batch 101 leaves a partial sample group) also
+   against 4 K1 launches, and K4 (lanes-layout CMUX step on the TPU's int8
+   key operand, MAC on the int8 tensor cores, both key forms, also at a
+   batch of 100 that leaves a partial MAC tile) also as 4 steps against 4
+   K1 launches on the same coefficient key; then K1, K3 and K4 at the
+   non-default (mask1, l) = (3, 2) and (2, 3), both key forms, at batch 64
+   and 101, each against its plain version, K3 against its chunk of K1
+   launches and K4's steps against as many K1 launches;
 4. the gate paths at the default parameters (n=500, N=1024), on 4096
    random inputs, through the entry points, each with the launch counts set
    to 0 just before the gate and read just after:
@@ -36,26 +40,31 @@ and prints no result line):
    the two NANDs of the default path and of the lanes path also equal the
    same gate run on the CPU through the plain versions on 8 of the inputs,
    bit for bit;
+   then NAND at each of the JAX package's one-knob variants
+   (``tlwe_mask_size=2``, ``bs_decomp_length=3``, ``ks_log2_base=3``), in
+   both engines, on the default path (2 K3 + 1 K2) and the lanes path (100
+   K4 + 1 K2) at ``lwe_size=100`` (to keep host keygen and the run short),
+   each checked the same way;
 5. timing at batch 2^14: warm ms/bit of the NAND in both engines on the
    default path, the per-step path and the lanes path, and of MUX; each
-   kernel's ms per launch beside its plain version, a PyTorch library call
-   where one computes the same function, and its bound;
+   kernel's ms per launch beside its plain version (whose output it
+   equals there too), a PyTorch library call where one computes the same
+   function, and its bound; K4's three grids timed apart;
 6. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the
-card's peak rate for their type.  K1 does 64-bit integer arithmetic
-outside the tensor cores, for which the H100 data sheet states no rate;
-67e12/s, its float32 rate outside the tensor cores, is the highest rate it
-states for such units, so the bound is a least time.  K2's function is an
-int32 add a nonzero digit and column, counted the same way (its
-tensor-core form's int8 operations are printed beside it: they take
-longer).  K3's and K4's MAC is int8 x int8 -> int32, which the data sheet
-rates at 1979e12 operations/s dense on the tensor cores.  A kernel's
-``launches`` in the JSON line is its count in the gate of the path that
-runs it (K1: the per-step path; K2 and K3: the default path; K4: the lanes
-path).
+card's peak rate for their type.  K1's, K3's and K4's MAC is int8 x int8
+-> int32, which the data sheet rates at 1979e12 operations/s dense on the
+tensor cores (K1's first design's 64-bit count is printed beside it).
+K2's function is an int32 add a nonzero digit and column; the data sheet
+states no rate for integer units outside the tensor cores, so it is
+counted at 67e12/s, its float32 rate there, the highest it states for
+such units (its tensor-core form's int8 operations are printed beside
+it: they take longer).  A kernel's ``launches`` in the JSON line is its
+count in the gate of the path that runs it (K1: the per-step path; K2
+and K3: the default path; K4: the lanes path).
 """
 
 import json
@@ -77,6 +86,14 @@ N_LWE = 500                # n: the blind rotation's steps
 CHUNK = 50                 # the default path's steps per K3 launch
 KERNEL_NAMES = ("cmux_step", "keyswitch", "blind_rotate_chunk",
                 "lanes_step")
+# the kernels' non-default (mask1, l): tlwe_mask_size=2, bs_decomp_length=3
+VARIANT_SHAPES = ((3, 2), (2, 3))
+# the gates at the JAX package's one-knob variant parameters run at this
+# LWE size, which the default chunk of 50 divides (so the default path runs
+# K3), to keep host keygen and the run short
+VARIANT_LWE = 100
+VARIANTS = (dict(tlwe_mask_size=2), dict(bs_decomp_length=3),
+            dict(ks_log2_base=3))
 
 
 def nvidia_smi_line():
@@ -113,6 +130,14 @@ def cmux_ops(batch):
     return 2 * macs + transform_adds
 
 
+def mac_ops(batch, mode):
+    """Operations of the int8 MAC of one CMUX step at the default shape:
+    two per multiply-add, 64 slots x 256 inputs x Q outputs a sample (Q =
+    320 exact, 256 rounded)."""
+    q_size = (4 if mode == "FFT" else 5) * 2 * 32
+    return 2 * batch * 64 * 256 * q_size
+
+
 def max_abs_err(x, y):
     return int((x.to(torch.int64) - y.to(torch.int64)).abs().max().item())
 
@@ -132,41 +157,45 @@ def read_counts():
     return {name: mod.launches for name, mod in counters().items()}
 
 
-def random_key(rng, rows, tp, dev, transform_type):
+def random_bk(rng, rows, mask1, decomp_length):
+    return rng.randint(-2**31, 2**31, (rows, mask1, decomp_length, mask1,
+                                       1024)).astype(np.int32)
+
+
+def random_key(rng, rows, tp, dev, transform_type, mask1=2):
     from nufhe_tpu_torch.ops import transform as tf
-    bk = rng.randint(-2**31, 2**31,
-                     (rows, 2, tp.decomp_length, 2, 1024)).astype(np.int32)
-    return tf.bootstrap_key_transformed(bk, dev, transform_type)
+    return tf.bootstrap_key_transformed(
+        random_bk(rng, rows, mask1, tp.decomp_length), dev, transform_type)
 
 
-def random_lanes_key(rng, rows, tp, dev, mode):
+def random_lanes_key(rng, rows, tp, dev, mode, mask1=2):
     """The lanes engine's int8 key (the port's ``build_mac_rhs``) and the
     rows engine's int64 key of one random coefficient key."""
     from nufhe_tpu_torch.ops import tgsw, transform as tf
-    bk = rng.randint(-2**31, 2**31,
-                     (rows, 2, tp.decomp_length, 2, 1024)).astype(np.int32)
+    bk = random_bk(rng, rows, mask1, tp.decomp_length)
     return (tgsw.prepare_bootstrap_key_device(bk, dev, exact=mode == "NTT"),
             tf.bootstrap_key_transformed(bk, dev, mode))
 
 
-def random_acc(rng, batch, dev):
-    return torch.from_numpy(
-        rng.randint(-2**31, 2**31, (batch, 2, 1024)).astype(np.int32)).to(dev)
+def random_acc(rng, batch, dev, mask1=2):
+    return torch.from_numpy(rng.randint(
+        -2**31, 2**31, (batch, mask1, 1024)).astype(np.int32)).to(dev)
 
 
 def random_powers(rng, shape, dev):
     return torch.from_numpy(rng.randint(0, 2048, shape).astype(np.int32)).to(dev)
 
 
-def keyswitch_inputs(rng, batch, dev):
+def keyswitch_inputs(rng, batch, dev, log2_base=2):
     from nufhe_tpu_torch.ops import lwe as dlwe
-    in_size, l, base, out = 1024, 8, 4, 500
+    in_size, l, base, out = 1024, 8, 2**log2_base, 500
     ks_a = rng.randint(-2**31, 2**31, (in_size, l, base, out)).astype(np.int32)
     ks_b = rng.randint(-2**31, 2**31, (in_size, l, base)).astype(np.int32)
     ks_a[:, :, 0] = 0
     ks_b[:, :, 0] = 0
     ks_cv = np.full((in_size, l, base), 3e-9, np.float32)
-    arrays, meta = dlwe.prepare_keyswitch_device(ks_a, ks_b, ks_cv, 2, dev)
+    arrays, meta = dlwe.prepare_keyswitch_device(ks_a, ks_b, ks_cv, log2_base,
+                                                 dev)
     a = torch.from_numpy(
         rng.randint(-2**31, 2**31, (batch, in_size)).astype(np.int32)).to(dev)
     return a, arrays["ab_limbs"], meta
@@ -192,15 +221,18 @@ def check_kernels(nft, dev, rng, results):
             torch.cuda.synchronize()
             record_err(results, "cmux_step", "K1 cmux_step %s vs plain, batch %d"
                        % (mode, batch), max_abs_err(got, want))
-    for batch in (100, MAIN_BATCH):     # 100: a partial sample tile
-        a, ab_limbs, meta = keyswitch_inputs(rng, batch, dev)
-        kkw = dict(out_size=meta.output_size,
-                   decomp_length=meta.decomp_length, log2_base=meta.log2_base)
-        got = ks.keyswitch_totals(a, ab_limbs, **kkw)
-        want = ks.keyswitch_totals_plain(a, ab_limbs, **kkw)
-        torch.cuda.synchronize()
-        record_err(results, "keyswitch", "K2 keyswitch vs plain, batch %d"
-                   % batch, max_abs_err(got, want))
+    for log2_base in (2, 3):            # base 4 (default) and base 8
+        for batch in (100, MAIN_BATCH):     # 100: a partial sample tile
+            a, ab_limbs, meta = keyswitch_inputs(rng, batch, dev, log2_base)
+            kkw = dict(out_size=meta.output_size,
+                       decomp_length=meta.decomp_length,
+                       log2_base=meta.log2_base)
+            got = ks.keyswitch_totals(a, ab_limbs, **kkw)
+            want = ks.keyswitch_totals_plain(a, ab_limbs, **kkw)
+            torch.cuda.synchronize()
+            record_err(results, "keyswitch", "K2 keyswitch base %d vs plain, "
+                       "batch %d" % (2**log2_base, batch),
+                       max_abs_err(got, want))
     steps, start, chunk = 8, 2, 4
     for mode in ("NTT", "FFT"):
         key = random_key(rng, steps, tp, dev, mode)
@@ -222,6 +254,59 @@ def check_kernels(nft, dev, rng, results):
                        "K3 blind_rotate_chunk %s vs %d K1 launches, batch %d"
                        % (mode, chunk, batch), max_abs_err(got, by_k1))
     check_k4(dev, rng, results, tp, kw)
+    for mask1, decomp_length in VARIANT_SHAPES:
+        check_variant_shape(nft, dev, rng, results, mask1, decomp_length)
+
+
+def check_variant_shape(nft, dev, rng, results, mask1, decomp_length):
+    """K1, K3 and K4 at a non-default (mask1, l), both key forms, each
+    against its plain version at batch 64 and 101 (a ragged block and MAC
+    tile); K3 also against its chunk of K1 launches, K4 also as its steps
+    against as many K1 launches on the same coefficient key."""
+    from nufhe_tpu_torch.ops import blind_rotate as brc, cmux
+    from nufhe_tpu_torch.ops import flat_engine as fe, lanes_step as k4
+    tp = nft.NuFHEParameters(tlwe_mask_size=mask1 - 1,
+                             bs_decomp_length=decomp_length).tgsw_params
+    kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
+    shape = "(mask1, l) = (%d, %d)" % (mask1, decomp_length)
+    steps, start, chunk = 6, 1, 4
+    for mode in ("NTT", "FFT"):
+        lanes_key, key = random_lanes_key(rng, steps, tp, dev, mode, mask1)
+        for batch in (64, 101):
+            acc = random_acc(rng, batch, dev, mask1)
+            bara_t = random_powers(rng, (steps, batch), dev)
+            got = cmux.cmux_step(acc, bara_t[0], key[0], **kw)
+            want = cmux.cmux_step_plain(acc, bara_t[0], key[0], **kw)
+            torch.cuda.synchronize()
+            record_err(results, "cmux_step", "K1 %s %s vs plain, batch %d"
+                       % (shape, mode, batch), max_abs_err(got, want))
+            got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk, **kw)
+            want = brc.blind_rotate_chunk_plain(acc, bara_t, key, start, chunk,
+                                                **kw)
+            by_k1 = acc
+            for i in range(start, start + chunk):
+                by_k1 = cmux.cmux_step(by_k1, bara_t[i], key[i], **kw)
+            torch.cuda.synchronize()
+            record_err(results, "blind_rotate_chunk", "K3 %s %s vs plain, "
+                       "batch %d, steps [%d, %d)" % (shape, mode, batch, start,
+                                                     start + chunk),
+                       max_abs_err(got, want))
+            record_err(results, "blind_rotate_chunk", "K3 %s %s vs %d K1 "
+                       "launches, batch %d" % (shape, mode, chunk, batch),
+                       max_abs_err(got, by_k1))
+            acc_q = fe.q_from_n(acc).reshape(batch, -1).contiguous()
+            got = k4.lanes_step(acc_q, bara_t[0], lanes_key[0], **kw)
+            want = k4.lanes_step_plain(acc_q, bara_t[0], lanes_key[0], **kw)
+            torch.cuda.synchronize()
+            record_err(results, "lanes_step", "K4 %s %s vs plain, batch %d"
+                       % (shape, mode, batch), max_abs_err(got, want))
+            by_k4 = k4.blind_rotate_lanes(acc_q, lanes_key[start:start + chunk],
+                                          bara_t[start:start + chunk], **kw)
+            torch.cuda.synchronize()
+            record_err(results, "lanes_step", "K4 %s %s: %d launches vs %d K1 "
+                       "launches, batch %d" % (shape, mode, chunk, chunk, batch),
+                       max_abs_err(fe.n_from_q(by_k4.reshape(acc.shape)),
+                                   by_k1))
 
 
 def check_k4(dev, rng, results, tp, kw):
@@ -276,8 +361,9 @@ def run_gate(nft, label, secret, vm, gate, args, want, expect):
           % (label, gate, len(want), elapsed, json.dumps(counts)))
     if counts != expect:
         raise AssertionError("%s: expected launches %s" % (label, expect))
+    n_lwe = vm.params.in_out_params.size
     if not (np.isfinite(out.current_variances.cpu().numpy()).all()
-            and tuple(out.a.shape) == (len(want), N_LWE)):
+            and tuple(out.a.shape) == (len(want), n_lwe)):
         raise AssertionError("%s: unexpected output shape or non-finite cv"
                              % label)
     got = nft.decrypt(secret, out)
@@ -309,11 +395,11 @@ def same_on_cpu(nft, label, cloud, gate, args, out, perf=None):
                              % label)
 
 
-def fft_cloud(nft, cloud):
+def fft_cloud(nft, cloud, **params):
     """The rounded-key ('FFT') cloud key from the same keygen arrays."""
     bk, ks = cloud.bootstrap_key, cloud.keyswitch_key
     return nft.cloud_key_from_arrays(
-        nft.NuFHEParameters(transform_type='FFT', lwe_size=N_LWE),
+        nft.NuFHEParameters(transform_type='FFT', **params),
         bk.bk_coeff, bk.cv,
         ks.ks_a, ks.ks_b, ks.ks_cv, ks.log2_base)
 
@@ -332,7 +418,7 @@ def gate_paths(nft, dev, rng):
     keys and machines for the timing phase."""
     t0 = time.time()
     secret, cloud = nft.make_key_pair(nft.DeterministicRNG(SEED), lwe_size=N_LWE)
-    cloud_fft = fft_cloud(nft, cloud)
+    cloud_fft = fft_cloud(nft, cloud, lwe_size=N_LWE)
     print("keygen (host, n=%d, N=1024): %.1f s" % (N_LWE, time.time() - t0))
     for c in (cloud, cloud_fft):
         t0 = time.time()
@@ -396,6 +482,45 @@ def gate_paths(nft, dev, rng):
     return launches, secret, cloud, cloud_fft, vms
 
 
+def variant_gates(nft, dev, rng):
+    """NAND at each of the JAX package's one-knob variant parameters
+    (``tlwe_mask_size=2``, ``bs_decomp_length=3``, ``ks_log2_base=3``), in
+    both engines, on the default path (n / 50 K3 launches and 1 K2) and the
+    lanes path (n K4 launches and 1 K2), 4096 inputs, at n = VARIANT_LWE;
+    each decrypts to its truth table with exactly those launches and
+    equals the plain CPU gate on 8 inputs."""
+    none = dict.fromkeys(KERNEL_NAMES, 0)
+    lanes = nft.PerformanceParameters(single_kernel_bootstrap=False)
+    print("variant parameters run at lwe_size=%d (not 500) to keep host "
+          "keygen and the run short; the default chunk of %d divides it"
+          % (VARIANT_LWE, CHUNK))
+    for i, knob in enumerate(VARIANTS):
+        t0 = time.time()
+        secret, cloud = nft.make_key_pair(nft.DeterministicRNG(SEED + 10 + i),
+                                          lwe_size=VARIANT_LWE, **knob)
+        clouds = (("NTT", cloud),
+                  ("FFT", fft_cloud(nft, cloud, lwe_size=VARIANT_LWE, **knob)))
+        print("%s: keygen (host, n=%d): %.1f s"
+              % (knob, VARIANT_LWE, time.time() - t0))
+        crng = nft.DeterministicRNG(SEED + 20 + i)
+        x, y = (rng.randint(0, 2, MAIN_BATCH).astype(bool) for _ in range(2))
+        cx, cy = (nft.encrypt(crng, secret, v, device=dev) for v in (x, y))
+        for mode, c in clouds:
+            for path, perf, expect in (
+                    ("default", None,
+                     dict(none, blind_rotate_chunk=VARIANT_LWE // CHUNK,
+                          keyswitch=1)),
+                    ("lanes", lanes,
+                     dict(none, lanes_step=VARIANT_LWE, keyswitch=1))):
+                label = "%s %s %s" % (knob, path, mode)
+                vm = nft.VirtualMachine(c, perf, device=dev)
+                out, _ = run_gate(nft, label, secret, vm, "gate_nand",
+                                  (cx, cy), ~(x & y), expect)
+                cpu_cloud = c if perf is None else cpu_lanes_cloud(nft, c, dev)
+                same_on_cpu(nft, label, cpu_cloud, "gate_nand", (cx, cy), out,
+                            perf)
+
+
 def gate_ms_bit(nft, secret, vm, gate, args, want):
     out = getattr(vm, gate)(*args)                   # warm-up
     torch.cuda.synchronize()
@@ -413,7 +538,6 @@ def gate_ms_bit(nft, secret, vm, gate, args, want):
 
 def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
     from nufhe_tpu_torch.ops import blind_rotate as brc, cmux, keyswitch as ks
-    from nufhe_tpu_torch.ops import transform as tf
     b = TIMING_BATCH
     crng = nft.DeterministicRNG(SEED + 2)
     x, y, z = (rng.randint(0, 2, b).astype(bool) for _ in range(3))
@@ -437,13 +561,23 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
     k1_ms = {}
     for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
         key_row = c.bootstrap_key.device(dev)[0]
-        cmux.cmux_step(acc, p, key_row, **kw)
+        got = cmux.cmux_step(acc, p, key_row, **kw)
+        want = cmux.cmux_step_plain(acc, p, key_row, **kw)
+        torch.cuda.synchronize()
+        record_err(results, "cmux_step", "K1 %s vs plain, batch %d"
+                   % (mode, b), max_abs_err(got, want))
+        del got, want
         k1_ms[mode] = cuda_ms(lambda: cmux.cmux_step(acc, p, key_row, **kw), 20)
         plain = cuda_ms(lambda: cmux.cmux_step_plain(acc, p, key_row, **kw), 2)
-        bound, by = bound_ms(2 * acc.numel() * 4 + p.numel() * 4
-                             + key_row.numel() * 8, cmux_ops(b))
-        print("K1 %s batch %d: %.4f ms/launch, plain %.2f ms, bound %.4f ms (%s)"
-              % (mode, b, k1_ms[mode], plain, bound, by))
+        n_bytes = 2 * acc.numel() * 4 + p.numel() * 4 + key_row.numel() * 8
+        # the design's own operations: the int8 multiply-adds of K3's MAC
+        # for one step; beside it the int64 count of the first design
+        bound, by = bound_ms(n_bytes, mac_ops(b, mode), INT8_OPS_PER_S)
+        old_bound, old_by = bound_ms(n_bytes, cmux_ops(b))
+        print("K1 %s batch %d: %.4f ms/launch, plain %.2f ms, bound %.4f ms "
+              "(%s; int8 MAC), bound by the int64 count of the first design "
+              "%.4f ms (%s)" % (mode, b, k1_ms[mode], plain, bound, by,
+                                old_bound, old_by))
         if mode == "NTT":
             results["cmux_step"].update(ms=k1_ms[mode], plain_ms=plain,
                                         bound_ms=bound, bound_by=by,
@@ -454,20 +588,23 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
     bara_t = random_powers(rng, (N_LWE, b), dev)
     for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
         key = c.bootstrap_key.device(dev)
-        brc.blind_rotate_chunk(acc, bara_t, key, 0, CHUNK, **kw)
+        got = brc.blind_rotate_chunk(acc, bara_t, key, 0, CHUNK, **kw)
         k3_ms = cuda_ms(
             lambda: brc.blind_rotate_chunk(acc, bara_t, key, 0, CHUNK, **kw), 3)
-        plain = cuda_ms(lambda: brc.blind_rotate_chunk_plain(
-            acc, bara_t, key, 0, CHUNK, **kw), 1)
+        plain_out = []
+        plain = cuda_ms(lambda: plain_out.append(brc.blind_rotate_chunk_plain(
+            acc, bara_t, key, 0, CHUNK, **kw)), 1)
+        record_err(results, "blind_rotate_chunk", "K3 %s vs plain, batch %d, "
+                   "chunk %d" % (mode, b, CHUNK),
+                   max_abs_err(got, plain_out[0]))
+        del got, plain_out
         row_bytes = key[0].numel() * 8
         n_bytes = 2 * acc.numel() * 4 + CHUNK * b * 4 + CHUNK * row_bytes
         # the design's own operations: int8 multiply-adds of the MAC, 64
         # slots x 256 inputs x Q outputs a sample and step (K4's count x
         # CHUNK); beside it the int64 count of the first design
-        q_size = (tf.SHIFT_GROUPS_APPROX if mode == "FFT"
-                  else tf.SHIFT_GROUPS) * 2 * tf.R
-        n_ops = 2 * b * tf.L * 256 * q_size * CHUNK
-        bound, by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
+        bound, by = bound_ms(n_bytes, mac_ops(b, mode) * CHUNK,
+                             INT8_OPS_PER_S)
         old_bound, old_by = bound_ms(n_bytes, CHUNK * cmux_ops(b))
         print("K3 %s batch %d chunk %d: %.4f ms/launch (%d x K1 = %.4f ms, "
               "ratio %.4f), plain %.2f ms, bound %.4f ms (%s; int8 MAC), "
@@ -528,6 +665,17 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
           % (b, k2_ms, k2_plain, lib_ms, k2_bound, k2_by, mma_ops,
              mma_ops / INT8_OPS_PER_S * 1e3))
     del onehot, table64, lib
+    # K2's other form: base 8, a stage a digit value (7 of them)
+    a8, ab8, meta8 = keyswitch_inputs(rng, b, dev, log2_base=3)
+    kw8 = dict(out_size=meta8.output_size, decomp_length=meta8.decomp_length,
+               log2_base=meta8.log2_base)
+    got = ks.keyswitch_totals(a8, ab8, **kw8)
+    want = ks.keyswitch_totals_plain(a8, ab8, **kw8)
+    torch.cuda.synchronize()
+    record_err(results, "keyswitch", "K2 keyswitch base 8 vs plain, batch %d"
+               % b, max_abs_err(got, want))
+    print("K2 base 8 batch %d: %.4f ms/launch"
+          % (b, cuda_ms(lambda: ks.keyswitch_totals(a8, ab8, **kw8), 5)))
 
 
 def timing_k4(dev, rng, cloud, cloud_fft, results, kw):
@@ -540,7 +688,12 @@ def timing_k4(dev, rng, cloud, cloud_fft, results, kw):
     p = random_powers(rng, (b,), dev)
     for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
         key_row = c.bootstrap_key.mac_rhs(dev)[0]
-        k4.lanes_step(acc_q, p, key_row, **kw)
+        got = k4.lanes_step(acc_q, p, key_row, **kw)
+        want = k4.lanes_step_plain(acc_q, p, key_row, **kw)
+        torch.cuda.synchronize()
+        record_err(results, "lanes_step", "K4 %s vs plain, batch %d"
+                   % (mode, b), max_abs_err(got, want))
+        del got, want
         ms = cuda_ms(lambda: k4.lanes_step(acc_q, p, key_row, **kw), 20)
         plain = cuda_ms(lambda: k4.lanes_step_plain(acc_q, p, key_row, **kw),
                         2)
@@ -565,6 +718,32 @@ def timing_k4(dev, rng, cloud, cloud_fft, results, kw):
         if mode == "NTT":
             results["lanes_step"].update(ms=ms, plain_ms=plain, bound_ms=bound,
                                          bound_by=by, library_ms=None)
+    k4_grid_split(dev, rng, cloud.params.tgsw_params, kw)
+
+
+def k4_grid_split(dev, rng, tp, kw):
+    """K4's three grids (forward, MAC, inverse) timed apart with CUDA
+    events at the timing batch, in both forms, on a random key row and
+    accumulator; the sum beside the whole launch.  Returns {mode: {grid:
+    ms}}."""
+    from nufhe_tpu_torch.ops import lanes_step as k4
+    b = TIMING_BATCH
+    acc_q = random_acc(rng, b, dev).reshape(b, -1)
+    p = random_powers(rng, (b,), dev)
+    split = {}
+    for mode in ("NTT", "FFT"):
+        key_row = random_lanes_key(rng, 1, tp, dev, mode)[0][0].contiguous()
+        k4.lanes_step_grids(acc_q, p, key_row, 7, **kw)
+        ms = {name: cuda_ms(lambda: k4.lanes_step_grids(acc_q, p, key_row,
+                                                        grids, **kw), 20)
+              for name, grids in (("forward", 1), ("mac", 2), ("inverse", 4),
+                                  ("all", 7))}
+        print("K4 %s batch %d, grids apart: forward %.4f ms, MAC %.4f ms, "
+              "inverse %.4f ms, sum %.4f ms, the three in one launch %.4f ms"
+              % (mode, b, ms["forward"], ms["mac"], ms["inverse"],
+                 ms["forward"] + ms["mac"] + ms["inverse"], ms["all"]))
+        split[mode] = ms
+    return split
 
 
 def build_kernels():
@@ -613,6 +792,7 @@ def main():
     check_kernels(nft, dev, rng, results)
 
     launches, secret, cloud, cloud_fft, vms = gate_paths(nft, dev, rng)
+    variant_gates(nft, dev, rng)
     for name, n in launches.items():
         if not n:
             raise AssertionError("kernel %s was not launched on its path" % name)

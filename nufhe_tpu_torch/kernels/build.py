@@ -27,15 +27,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNELS = {
     "cmux_step": ("cmux_step.cu", "cmux_step_launch",
-                  [_P, _P, _P, _P, _I, ctypes.c_uint, _I, _I, _I, _P]),
+                  [_P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _I, _I, _I, _P]),
     "blind_rotate_chunk": ("blind_rotate_chunk.cu", "blind_rotate_chunk_launch",
-                           [_P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _I, _I,
-                            _I, _P]),
+                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_uint,
+                            _I, _I, _I, _P]),
     "keyswitch": ("keyswitch.cu", "keyswitch_launch",
-                  [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                  [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "lanes_step": ("lanes_step.cu", "lanes_step_launch",
-                   [_P, _P, _P, _P, _P, _P, _I, ctypes.c_uint, _I, _I, _I,
-                    _P]),
+                   [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _I,
+                    _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

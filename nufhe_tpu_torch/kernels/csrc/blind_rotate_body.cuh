@@ -1,0 +1,421 @@
+// The rows-layout blind rotation for Hopper, with the MAC on the int8
+// tensor cores: `chunk` consecutive CMUX steps, from step `start`, in one
+// launch, in both engine modes.  The chunked rotation (K3,
+// blind_rotate_chunk.cu) and the per-step kernel (K1, cmux_step.cu: a chunk
+// of 1 on one key row) are both this template, so the two cannot drift
+// apart.
+//
+//   acc' = acc + sum_{g=(o_in,d)} decomp_d((X^p - 1) * acc[o_in]) (*) BK[g, o_out]
+//
+// negacyclic in Z[X]/(X^1024 + 1), mod 2^32.  K3 replaces the TPU kernel
+// nufhe_tpu/ops/pallas/blind_rotate.py::make_blind_rotate_chunk, K1
+// ::make_external_step_rows (both over ops/rows_engine.py, with the MAC as
+// int8 products on the MXU: transformed_mac -> _mac_dot_raw).  The output
+// equals `chunk` plain steps (ops/cmux.cmux_step_plain) and `chunk` launches
+// of K4 (lanes_step.cu) bit for bit.
+//
+// Templated on the TLWE mask size + 1 (Mask1), the gadget length (Decomp)
+// and the key form; the launcher instantiates (Mask1, Decomp) = (2, 2),
+// (3, 2) and (2, 3) (ops/transform.KERNEL_SHAPES) and refuses any other.
+// G = Mask1 * Decomp digit polynomials.
+//
+// Layout (the port's own):
+//   acc     (B, Mask1, 1024) int32, batch-major, contiguous
+//   bara_t  (n, B) int32 in [0, 2048): the rotation amounts, one row a step
+//           (K1: the (B,) powers, as one row)
+//   key     the transformed key: (n, G, Mask1, 64, 32) int64 exact, or
+//           (n, 2, G, Mask1, 64, 32) rounded (ops/transform.py), residues
+//           mod 2^38, centred (K1: one row)
+//   out     (B, Mask1, 1024) int32 (a separate buffer; the wrapper allocates
+//           it)
+//   start   first step; the wrapper checks 0 <= start, start + chunk <= n
+//
+// Design: a block holds kS samples, their accumulators in shared memory
+// (q-layout) for the whole chunk.  A step:
+//   1-3. a warp a (sample, digit polynomial g = o*Decomp + d): the rotation
+//      (X^p - 1) * acc and the gadget digit straight into registers, the
+//      exact forward Nussbaumer DIT there (rotate_common.cuh), and the split
+//      into int8 limbs a0, a1, stored by MAC slot p (frequency rev6(p)):
+//      per slot, [g][limb][sample][32];
+//   4. the MAC: per slot, the (Q x 64G) . (64G x kS) product, Q = 5*32*Mask1
+//      exact (groups B, A0..A3) or 4*32*Mask1 rounded (A0..A3), by mma.sync
+//      m16n8k32 s8 x s8 -> s32, the samples on the mma's N (kS of its 8
+//      columns); a warp owns a slot.  The A operand is the key, built on
+//      chip: the warp loads the slot's int64 residues (G*Mask1*32 exact,
+//      twice that rounded) from device memory, splits each into the
+//      two-sided int8 limbs of ops/transform.key_limbs_host (side 0 from +v,
+//      side 1 from -v mod 2^38 exact; each stored side rounded,
+//      64*round(./64), in the rounded form), and writes per (g, o, limb) one
+//      64-byte row, side 0 then side 1, reversed: the Toeplitz operand's
+//      entry (k, u) is byte 31 - k + u of it, so a fragment's 4 consecutive
+//      K bytes are one unaligned word of the row.  The two 16-row M tiles of
+//      an output polynomial take the odd and the even outputs k, so the 8
+//      fragment registers a thread needs from a row all come from the same 4
+//      words (4 shared loads, 6 funnel shifts).  The limbs are split with
+//      32-bit arithmetic on any representative mod 2^38 (no centring), the 4
+//      balanced radix-2^8 digits of a word at once.  A limb row meets the
+//      digits' limb 0 in its own group and limb 1 in the next (the table of
+//      ops/transform._mac_limb_table), so 6 row fragments feed 9 mma (4 and
+//      7 rounded).  The groups of an output lie in one thread, so they are
+//      recombined in registers (lo = A0 + A1<<8 + A2<<16 + A3<<24 in uint32,
+//      hi = B); lo goes to the lo channel, hi over the slot's consumed limbs;
+//   5-6. a warp a channel polynomial: the unscaled inverse DIT in uint32
+//      registers, the fold, and c = lo + (hi >> 6) (or lo) added to the
+//      accumulator.  Wraparound is the lo channel's mod 2^32.  The hi
+//      channel is exact: before the inverse |hi| <= 32G * 128 * 32 = G*2^17
+//      (limb a0 times vlo over the slot's 32G digit coefficients), the
+//      inverse and the fold multiply by at most 128, so |hi| <= G * 2^24
+//      (2^26.6 at G = 6), inside int32, and the arithmetic >> 6 is exact.
+// Three block barriers a step.  The warp roles of phases 1-3 (kS * G) and
+// 5-6 (2 * kS * Mask1 exact, half of it rounded) are at most the block's
+// warps; a warp without a role waits at the barriers.
+//
+// Shared memory a sample: the accumulator (4 KB a polynomial: 4*Mask1 KB),
+// the lo channel (8*Mask1 KB) and the limbs / hi channel (64 slots x
+// max(64G, 128*Mask1) bytes); a warp's key rows take G*Mask1*6*64 bytes
+// (4 limb rows rounded).  kS and the block's warps per shape:
+//   (2, 2): 40 KB a sample, kS = 4, 16 warps x 3 KB of key rows: 208 KB
+//           exact, 192 KB rounded (as before the shapes were templated);
+//   (3, 2): 60 KB a sample, kS = 2, 12 warps x 6.75 KB: 201 KB exact (kS = 3
+//           would need 180 KB + 18 warps x 6.75 KB);
+//   (2, 3): 48 KB a sample, kS = 2, 12 warps x 4.5 KB: 150 KB exact (kS = 3
+//           would fit in 225 KB, but with 18 warps and at most 112 registers
+//           a thread, below the 128 the (2, 2) kernel takes).
+// One block an SM.
+//
+// Bound: the MAC is 64 * 64G * Q int8 multiply-adds a sample and step
+// (5.24 M exact at (2, 2), 4.19 M rounded); at batch 2^14 and chunk 50,
+// 8.6e12 operations exact, 4.34 ms at the H100's dense int8 rate of
+// 1979e12/s (3.47 ms rounded).  Bytes: the accumulator in and out, the
+// rotation amounts and the chunk's key rows (131 KB exact each at (2, 2)).
+// L2 traffic: one key row a block and step, 2^14 / 4 x 131 KB = 0.54 GB a
+// step exact.
+
+#pragma once
+
+#include "rotate_common.cuh"
+
+namespace {
+
+constexpr int kRowWords = 16;                   // one 64-byte key limb row
+
+template <int M, int D>
+struct Shape {
+  static constexpr int kG = M * D;
+  static constexpr int kS = (M == 2 && D == 2) ? 4 : 2;    // samples a block
+  static constexpr int kDigitRoles = kS * kG;
+  static constexpr int kWarps =
+      kDigitRoles > 2 * kS * M ? kDigitRoles : 2 * kS * M;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kSide = kG * M * kL * kR;  // int64 values in one side
+  static constexpr int kAccWords = M * kN;        // a sample's accumulator
+  static constexpr int kWorkWords = M * kL * kR;  // a sample's lo channel
+  // a slot's limbs ([g][limb][sample][32 bytes]), or its hi channel
+  static constexpr int kRegionWords =
+      kS * (16 * kG > 32 * M ? 16 * kG : 32 * M);
+};
+
+// The MAC of one slot p (frequency rev6(p)) for the block's samples; the
+// calling warp owns the slot.
+template <int M, int D, bool kRounded>
+__device__ __forceinline__ void mac_slot(
+    int p, const long long* __restrict__ key_row, uint32_t* arow,
+    uint32_t* work, uint32_t* limbs) {
+  using S = Shape<M, D>;
+  constexpr int kG = S::kG;
+  constexpr int kS = S::kS;
+  constexpr int kRows = kRounded ? 4 : 6;    // limb rows a (g, o)
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+
+  // the slot's key residues -> limb rows: row (g, o, L) byte 31 - r is
+  // limb L of side 0 at rotation r, byte 63 - r that of side 1
+  const int t = rev6(p);
+  uint8_t* rb = reinterpret_cast<uint8_t*>(arow);
+#pragma unroll
+  for (int go = 0; go < kG * M; ++go) {
+    const size_t idx = ((size_t)go * kL + t) * kR + lane;
+    uint32_t l0[kRows], l1[kRows];
+    if constexpr (kRounded) {
+      split_rounded(__ldg(key_row + idx), l0);
+      split_rounded(__ldg(key_row + S::kSide + idx), l1);
+    } else {
+      const long long v = __ldg(key_row + idx);
+      split_exact(v, l0);
+      split_exact(-v, l1);      // side 1: -v mod 2^38
+    }
+#pragma unroll
+    for (int L = 0; L < kRows; ++L) {
+      uint8_t* row = rb + (go * kRows + L) * 64;
+      row[31 - lane] = (uint8_t)l0[L];
+      row[63 - lane] = (uint8_t)l1[L];
+    }
+  }
+
+  // B fragments: sample gid's limbs i of digit polynomial g, bytes
+  // 4tig..4tig+3 and 16+4tig..+3 (samples past kS are zero columns)
+  const uint32_t* reg = limbs + p * S::kRegionWords;
+  uint32_t bf[kG][2][2];
+#pragma unroll
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t* w = reg + ((g * 2 + i) * kS + gid) * 8;
+      bf[g][i][0] = gid < kS ? w[tig] : 0u;
+      bf[g][i][1] = gid < kS ? w[tig + 4] : 0u;
+    }
+  __syncwarp();   // the rows are written; the limbs are read (hi goes there)
+
+  // M tiles: the odd outputs k (tile 0: row gid is k = 4gid + 3, row
+  // gid + 8 is k = 4gid + 1) and the even ones (tile 1: 4gid + 2, 4gid).
+  // With that order every fragment of a row comes from the same 4 words
+  // w, w+1, w+4, w+5 (w = 7 - gid + tig), at byte shifts 0/2 (tile 0) and
+  // 1/3 (tile 1): entry (k, u) is byte 31 - k + u, and u = 4tig (+16).
+  const int w = 7 - gid + tig;
+#pragma unroll 1
+  for (int o = 0; o < M; ++o) {
+    int d[2][5][4];
+#pragma unroll
+    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+      for (int s = 0; s < 5; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[tile][s][e] = 0;
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+#pragma unroll
+      for (int L = 0; L < kRows; ++L) {
+        const uint32_t* row =
+            arow + ((g * M + o) * kRows + L) * kRowWords + w;
+        const uint32_t w0 = row[0], w1 = row[1], w4 = row[4], w5 = row[5];
+        const uint32_t f[2][4] = {
+            {w0, __funnelshift_r(w0, w1, 16), w4, __funnelshift_r(w4, w5, 16)},
+            {__funnelshift_r(w0, w1, 8), __funnelshift_r(w0, w1, 24),
+             __funnelshift_r(w4, w5, 8), __funnelshift_r(w4, w5, 24)}};
+        // (group, digit limb) pairs that read limb row L
+        // (ops/transform._mac_limb_table)
+        int s0, s1;
+        if (kRounded) {
+          s0 = L;
+          s1 = L + 1 < 4 ? L + 1 : -1;
+        } else {
+          s0 = L < 5 ? L : -1;
+          s1 = L == 5 ? 1 : (L >= 1 && L <= 3 ? L + 1 : -1);
+        }
+#pragma unroll
+        for (int tile = 0; tile < 2; ++tile) {
+          const uint32_t(&a)[4] = f[tile];
+          if (s0 >= 0)
+            mma_s8(d[tile][s0], a[0], a[1], a[2], a[3], bf[g][0][0],
+                   bf[g][0][1]);
+          if (s1 >= 0)
+            mma_s8(d[tile][s1], a[0], a[1], a[2], a[3], bf[g][1][0],
+                   bf[g][1][1]);
+        }
+      }
+    }
+    // recombine the groups; lo to the lo channel, hi over the slot's limbs
+#pragma unroll
+    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * gid + (e < 2 ? 3 : 1) - tile;
+        const int n = 2 * tig + (e & 1);
+        if (n >= kS) continue;
+        const int a = kRounded ? 0 : 1;
+        const uint32_t lo = (uint32_t)d[tile][a][e] +
+                            ((uint32_t)d[tile][a + 1][e] << 8) +
+                            ((uint32_t)d[tile][a + 2][e] << 16) +
+                            ((uint32_t)d[tile][a + 3][e] << 24);
+        work[n * S::kWorkWords + (o * kL + p) * kR + k] = lo;
+        if (!kRounded)
+          limbs[p * S::kRegionWords + (n * M + o) * kR + k] =
+              (uint32_t)d[tile][0][e];
+      }
+  }
+  __syncwarp();   // the next slot rewrites the key rows
+}
+
+template <int M, int D, bool kRounded>
+__global__ void __launch_bounds__(Shape<M, D>::kThreads, 1)
+blind_rotate_kernel(const int32_t* __restrict__ acc_in,
+                    int32_t* __restrict__ acc_out,
+                    const int32_t* __restrict__ bara_t,
+                    const long long* __restrict__ key, int batch, int start,
+                    int chunk, uint32_t offset, int log2_base) {
+  using S = Shape<M, D>;
+  constexpr int kG = S::kG;
+  constexpr int kS = S::kS;
+  constexpr int kWarps = S::kWarps;
+  constexpr int kThreads = S::kThreads;
+  constexpr int kAccWords = S::kAccWords;
+  constexpr int kRows = kRounded ? 4 : 6;
+  constexpr int kKeyRow = kRounded ? 2 * S::kSide : S::kSide;  // a step
+  constexpr int kChanRoles = (kRounded ? 1 : 2) * kS * M;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* acc_s = smem;                        // [kS][M][1024] q-layout
+  uint32_t* work = acc_s + kS * kAccWords;       // [kS][M][64][32]
+  uint32_t* limbs = work + kS * S::kWorkWords;   // [64 slots][kRegionWords]
+  uint32_t* arows = limbs + kL * S::kRegionWords;   // [warps][G*M][kRows][16]
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int b0 = blockIdx.x * kS;
+  const int ns = min(kS, batch - b0);
+  uint32_t* arow = arows + warp * (kG * M * kRows * kRowWords);
+
+  for (int e = tid; e < kS * kAccWords; e += kThreads) {
+    const int s = e / kAccWords;
+    const int on = e % kAccWords;
+    const uint32_t v =
+        s < ns ? (uint32_t)acc_in[(size_t)(b0 + s) * kAccWords + on] : 0u;
+    acc_s[s * kAccWords + (on & ~(kN - 1)) + q_of(on & (kN - 1))] = v;
+  }
+  __syncthreads();
+
+  const int base_mask = (1 << log2_base) - 1;
+  const int half = 1 << (log2_base - 1);
+  const int lane = tid & 31;
+  for (int st = 0; st < chunk; ++st) {
+    const size_t step = (size_t)(start + st);
+    const long long* key_row = key + step * kKeyRow;
+
+    // 1-3. a warp a (sample, digit polynomial g = o*D + d): rotation,
+    // digit and forward transform in registers, the split into int8 limbs
+    // a0, a1 by MAC slot p = rev6(frequency)
+    if (S::kDigitRoles == kWarps || warp < S::kDigitRoles) {
+      const int s = warp / kG;
+      const int g = warp % kG;
+      const int p = s < ns
+          ? (__ldg(bara_t + step * batch + b0 + s) & (2 * kN - 1)) : 0;
+      int x[kL];
+      forward_digits(acc_s + s * kAccWords + (g / D) * kN, p,
+                     32 - (g % D + 1) * log2_base, offset, base_mask, half,
+                     lane, x);
+      uint8_t* lb = reinterpret_cast<uint8_t*>(limbs);
+#pragma unroll
+      for (int f = 0; f < kL; ++f) {
+        uint8_t* reg =
+            lb + rev6c(f) * S::kRegionWords * 4 + (g * 2 * kS + s) * 32;
+        reg[lane] = (uint8_t)limb0(x[f]);
+        reg[kS * 32 + lane] = (uint8_t)limb1(x[f]);
+      }
+    }
+    __syncthreads();
+
+    // 4. the MAC, a warp a slot
+    for (int p = warp; p < kL; p += kWarps)
+      mac_slot<M, D, kRounded>(p, key_row, arow, work, limbs);
+    __syncthreads();
+
+    // 5-6. a warp a channel polynomial (lo of (s, o), and hi in the exact
+    // form): the inverse transform and the fold, coefficient i*32 + j at
+    // q-layout j*32 + i; hi >> 6 waits in its rows 0..31, lo + (hi >> 6)
+    // (or lo) is added to the accumulator
+    {
+      const bool role = kChanRoles == kWarps || warp < kChanRoles;
+      const bool hi_warp = warp >= kS * M;
+      const int so = warp % (kS * M);            // s * M + o
+      uint32_t* src = hi_warp ? limbs + so * kR : work + so * kL * kR;
+      const int stride = hi_warp ? S::kRegionWords : kR;
+      uint32_t x[kL];
+      if (role) {
+#pragma unroll
+        for (int r = 0; r < kL; ++r) x[r] = src[r * stride + lane];
+        inverse_fold(x, lane);
+        if (hi_warp) {
+#pragma unroll
+          for (int j = 0; j < kL / 2; ++j)
+            src[j * stride + lane] = (uint32_t)((int32_t)x[j] >> 6);
+        }
+      }
+      if constexpr (!kRounded) __syncthreads();   // every warp is here
+      if (role && !hi_warp) {
+        uint32_t* acc = acc_s + so * kN + lane;
+#pragma unroll
+        for (int j = 0; j < kL / 2; ++j) {
+          uint32_t delta = x[j];
+          if constexpr (!kRounded)
+            delta += limbs[j * S::kRegionWords + so * kR + lane];
+          acc[j * 32] += delta;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int e = tid; e < kS * kAccWords; e += kThreads) {
+    const int s = e / kAccWords;
+    const int on = e % kAccWords;
+    if (s < ns)
+      acc_out[(size_t)(b0 + s) * kAccWords + on] = (int32_t)
+          acc_s[s * kAccWords + (on & ~(kN - 1)) + q_of(on & (kN - 1))];
+  }
+}
+
+template <int M, int D, bool kRounded>
+cudaError_t launch(const int32_t* acc_in, int32_t* acc_out,
+                   const int32_t* bara_t, const long long* key, int batch,
+                   int start, int chunk, uint32_t offset, int log2_base,
+                   cudaStream_t stream) {
+  using S = Shape<M, D>;
+  constexpr int kRows = kRounded ? 4 : 6;
+  const int smem = (S::kS * (S::kAccWords + S::kWorkWords) +
+                    kL * S::kRegionWords +
+                    S::kWarps * S::kG * M * kRows * kRowWords) *
+                   (int)sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      blind_rotate_kernel<M, D, kRounded>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  blind_rotate_kernel<M, D, kRounded>
+      <<<(batch + S::kS - 1) / S::kS, S::kThreads, smem, stream>>>(
+          acc_in, acc_out, bara_t, key, batch, start, chunk, offset,
+          log2_base);
+  return cudaGetLastError();
+}
+
+template <int M, int D>
+cudaError_t launch_form(const int32_t* acc_in, int32_t* acc_out,
+                        const int32_t* bara_t, const long long* key,
+                        int batch, int start, int chunk, uint32_t offset,
+                        int log2_base, int rounded, cudaStream_t stream) {
+  return rounded ? launch<M, D, true>(acc_in, acc_out, bara_t, key, batch,
+                                      start, chunk, offset, log2_base, stream)
+                 : launch<M, D, false>(acc_in, acc_out, bara_t, key, batch,
+                                       start, chunk, offset, log2_base,
+                                       stream);
+}
+
+// Steps [start, start + chunk) on the device ordinal `device`; returns the
+// CUDA error code (cudaErrorInvalidValue for a (mask1, decomp) pair that is
+// not instantiated).
+inline int blind_rotate_launch_any(const void* acc_in, void* acc_out,
+                                   const void* bara_t, const void* key,
+                                   int batch, int start, int chunk, int mask1,
+                                   int decomp, unsigned int offset,
+                                   int log2_base, int rounded, int device,
+                                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (batch <= 0) return (int)cudaGetLastError();
+  const auto* in = (const int32_t*)acc_in;
+  auto* out = (int32_t*)acc_out;
+  const auto* bt = (const int32_t*)bara_t;
+  const auto* k = (const long long*)key;
+  const auto s = (cudaStream_t)stream;
+  if (mask1 == 2 && decomp == 2)
+    err = launch_form<2, 2>(in, out, bt, k, batch, start, chunk, offset,
+                            log2_base, rounded, s);
+  else if (mask1 == 3 && decomp == 2)
+    err = launch_form<3, 2>(in, out, bt, k, batch, start, chunk, offset,
+                            log2_base, rounded, s);
+  else if (mask1 == 2 && decomp == 3)
+    err = launch_form<2, 3>(in, out, bt, k, batch, start, chunk, offset,
+                            log2_base, rounded, s);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+}  // namespace

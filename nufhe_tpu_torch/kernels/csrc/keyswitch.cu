@@ -1,23 +1,33 @@
 // LWE keyswitch totals for Hopper (K2): a one-hot product on the int8
-// tensor cores (base 4 digits).
+// tensor cores, for any digit base 2^log2_base.
 //
-//   totals[s, c] = sum_{v=1..3} sum_{limb<4} sum_r
+//   totals[s, c] = sum_{v=1..nv} sum_{limb<4} sum_r
 //                    [digit(s, r) == v] * ab_limbs[v-1, limb, r, c] << 8*limb
 //
 // over the rows r = j * in_size + i (l-major), digit(s, r) =
-// ((a[s, i] + prec) >> (32 - (j+1)*2)) & 3; sums wrap mod 2^32.  Column
-// out + 1 of limb plane 0 holds a 1, so it counts the nonzero digits.
-// Replaces the TPU kernel nufhe_tpu/ops/pallas/keyswitch.py::keyswitch_mac
-// and reads its operand, the JAX package's ab_limbs, bit for bit.
+// ((a[s, i] + prec) >> (32 - (j+1)*log2_base)) & (base - 1), nv = base - 1;
+// sums wrap mod 2^32.  Column out + 1 of limb plane 0 holds a 1, so it
+// counts the nonzero digits.  Replaces the TPU kernel
+// nufhe_tpu/ops/pallas/keyswitch.py::keyswitch_mac (which loops its
+// one-hot over v = 1..nv) and reads its operand, the JAX package's
+// ab_limbs, bit for bit.
 //
 // Layout:
 //   a         (B, in_size) int32, in_size % 64 == 0
-//   ab_limbs  (3, 4, rows, n_pad) int8, n_pad % 32 == 0
+//   ab_limbs  (nv, 4, rows, n_pad) int8, n_pad % 32 == 0
 //   out       (B, out_w) int32, out_w = out + 2 <= n_pad: [a | b | count]
 //
-// The product: M = samples, N = 4 limbs x columns, K = 3 digit values x
-// rows, by mma.sync m16n8k32 s8 x s8 -> s32.  Each limb's sum is at most
-// rows * 128 = 2^20 in absolute value, so the int32 sums are exact; the
+// The product: M = samples, N = 4 limbs x columns, K = nv digit values x
+// rows, by mma.sync m16n8k32 s8 x s8 -> s32.  Two forms of one kernel:
+//   - base 4 (the default parameters; kPacked): a stage holds all 3 digit
+//     values, and the one-hot is built from 2-bit digit fields, below;
+//   - any other base: a stage holds one digit value (a stage is (i-tile,
+//     j, v)), the digits of all l rows of an i-tile lie in shared memory as
+//     bytes (4 consecutive i a word, 128 samples x 24 words a plane, l
+//     planes), and a one-hot register is one byte compare (__vcmpeq4)
+//     against v.  Base 8 at l = 8 has 7/3 of base 4's K.
+// Each limb's sum is at most rows * 128 = 2^20 in absolute value (2^21 at
+// in_size 2048), so the int32 sums are exact; the
 // epilogue recombines lo = sum_limb acc_limb << 8*limb in uint32 (wrapping
 // on purpose) and writes each output once.
 //
@@ -45,9 +55,11 @@
 //     (A first version loaded the blocks with 4-byte loads straight into
 //     registers: 16 L1 sectors a warp load, 6.5 ms a launch.)
 //
-// Shared memory: 2 x 24 KB key stages, 30 KB of raw key tile, 2 x 24 KB
-// digit-byte planes (128 samples x 48 words, 32 used, padded against bank
-// conflicts), 32 KB of a: 158 KB, one block an SM.
+// Shared memory, base 4: 2 x 24 KB key stages, 30 KB of raw key tile, 2 x
+// 24 KB digit-byte planes (128 samples x 48 words, 32 used, padded against
+// bank conflicts), 32 KB of a: 158 KB, one block an SM.  Other bases: 2 x
+// 8 KB key stages, 10 KB of raw key tile, l x 12 KB digit planes, 32 KB of
+// a: 154 KB at l = 8.
 //
 // Bound (default sizes, B = 2^14): the function is B * rows * (out + 1)
 // int32 adds for the nonzero digits (3/4 of them on random input), 0.75 ms
@@ -67,22 +79,32 @@ constexpr int kThreads = 256;
 constexpr int kBM = 128;       // samples a block
 constexpr int kBC = 32;        // output columns a block (x 4 limbs = N 128)
 constexpr int kTI = 64;        // i values a stage: two K-chunks of 32 rows
-constexpr int kNV = 3;         // nonzero digit values
 constexpr int kLimbs = 4;
-constexpr int kPQStride = 48;  // words a sample in a digit-byte plane
+constexpr int kPQStride = 48;  // words a sample in a base-4 digit-byte plane
+constexpr int kDigStride = 24; // words a sample in a digit plane (16 used)
 constexpr int kChunkWords = kBC * 8;                          // 32 cols x 32 rows
-constexpr int kTransWords = kNV * kLimbs * 2 * kChunkWords;   // 24 KB
 constexpr int kPQWords = kBM * kPQStride;                     // 24 KB
+constexpr int kDigWords = kBM * kDigStride;                   // 12 KB
 constexpr int kRawAWords = kBM * kTI;                         // 32 KB
-constexpr int kRawBRows = kNV * kLimbs * kTI;                 // 768
-constexpr int kRawBWords = kRawBRows / 4 * 5 * (kBC / 4);      // 30 KB
-constexpr int kSmemBytes =
-    (2 * kTransWords + 2 * kPQWords + kRawAWords + kRawBWords) *
-    (int)sizeof(uint32_t);
-constexpr int kBUnits = kRawBRows / 4 * (kBC / 4) / kThreads;   // 6
-constexpr int kBCopies = kRawBRows * kBC / 16 / kThreads;       // 6
 constexpr int kAUnits = kBM * (kTI / 4) / kThreads;                      // 8
 constexpr uint32_t kOnes = 0x01010101u;
+
+// kNV digit values a stage: 3 (all of base 4, packed 2-bit digits) or 1
+// (any base, a stage per value)
+template <bool kPacked>
+struct Form {
+  static constexpr int kNV = kPacked ? 3 : 1;
+  static constexpr int kTransWords = kNV * kLimbs * 2 * kChunkWords;
+  static constexpr int kRawBRows = kNV * kLimbs * kTI;
+  static constexpr int kRawBWords = kRawBRows / 4 * 5 * (kBC / 4);
+  static constexpr int kBUnits = kRawBRows / 4 * (kBC / 4) / kThreads;
+  static constexpr int kBCopies = kRawBRows * kBC / 16 / kThreads;
+  static int smem_bytes(int decomp_length) {
+    const int planes = kPacked ? 2 * kPQWords : decomp_length * kDigWords;
+    return (2 * kTransWords + planes + kRawAWords + kRawBWords) *
+           (int)sizeof(uint32_t);
+  }
+};
 
 // Row slot of column n in a (v, limb, chunk) block of the key stage: a
 // permutation inside each group of 4, so that the 4 columns of a fragment
@@ -121,14 +143,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+template <bool kPacked>
 __global__ void __launch_bounds__(kThreads, 1)
 keyswitch_kernel(const int32_t* __restrict__ a, const int8_t* __restrict__ key,
                  int32_t* __restrict__ out, int batch, int in_size,
-                 int decomp_length, int n_pad, int out_w) {
+                 int decomp_length, int log2_base, int n_pad, int out_w) {
+  using F = Form<kPacked>;
+  constexpr int kNV = F::kNV;
+  constexpr int kTransWords = F::kTransWords;
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* trans = smem;                     // [2][kTransWords]
-  uint32_t* pq = smem + 2 * kTransWords;      // [2][kPQWords]
-  uint32_t* raw_a = pq + 2 * kPQWords;        // [kBM][kTI]
+  // base 4: [2][kPQWords] packed planes; else [l][kDigWords] digit planes
+  uint32_t* pq = smem + 2 * kTransWords;
+  uint32_t* raw_a =
+      pq + (kPacked ? 2 * kPQWords : decomp_length * kDigWords);   // [kBM][kTI]
   uint32_t* raw_b = raw_a + kRawAWords;       // [kRawBWords]
 
   const int tid = threadIdx.x;
@@ -142,8 +170,11 @@ keyswitch_kernel(const int32_t* __restrict__ a, const int8_t* __restrict__ key,
   const int col0 = blockIdx.y * kBC;
   const int rows = in_size * decomp_length;
   const int n_tiles = in_size / kTI;
-  const int n_stages = n_tiles * decomp_length;
-  const uint32_t prec = 1u << (32 - (1 + 2 * decomp_length));
+  // a stage is (i-tile t, j, digit-value chunk vc); base 4 has one chunk
+  const int n_vc = kPacked ? 1 : (1 << log2_base) - 1;
+  const int per_tile = decomp_length * n_vc;
+  const int n_stages = n_tiles * per_tile;
+  const uint32_t prec = 1u << (32 - (1 + log2_base * decomp_length));
 
   // the a tile of i-tile t -> raw_a (zeros past the batch)
   auto load_a = [&](int t) {
@@ -178,20 +209,50 @@ keyswitch_kernel(const int32_t* __restrict__ a, const int8_t* __restrict__ key,
     }
   };
 
+  // raw_a -> digit bytes of every j (any base): plane j, sample s, word
+  // grp holds the digits of i = 4*grp .. 4*grp + 3, byte b from 4*grp + b
+  auto build_digits = [&]() {
+    const uint32_t dmask = (1u << log2_base) - 1;
+#pragma unroll
+    for (int q = 0; q < kAUnits; ++q) {
+      const int k = tid + kThreads * q;
+      const int s = k >> 4;
+      const int grp = k & 15;
+      const uint4 x =
+          *reinterpret_cast<const uint4*>(raw_a + s * kTI + 4 * grp);
+      const uint32_t y0 = x.x + prec, y1 = x.y + prec, y2 = x.z + prec,
+                     y3 = x.w + prec;
+      for (int j = 0; j < decomp_length; ++j) {
+        const int sh = 32 - (j + 1) * log2_base;
+        pq[j * kDigWords + s * kDigStride + grp] =
+            ((y0 >> sh) & dmask) | (((y1 >> sh) & dmask) << 8) |
+            (((y2 >> sh) & dmask) << 16) | (((y3 >> sh) & dmask) << 24);
+      }
+    }
+  };
+  auto build_a = [&](int t) {
+    if constexpr (kPacked) build_pq(pq + (t & 1) * kPQWords);
+    else build_digits();
+  };
+
   // stage st's key tile -> raw_b, row-major, 16 bytes a copy: row k
   // (k = vl*64 + r, plane vl = (v-1)*4 + limb, r < 64) at word
   // (k + k/4) * 8, an empty row after every 4 against bank conflicts
   auto load_b = [&](int st) {
-    const int t = st / decomp_length;
-    const int r0 = (st - t * decomp_length) * in_size + t * kTI;
+    const int t = st / per_tile;
+    const int jv = st - t * per_tile;
+    const int j = jv / n_vc;
+    const int plane0 = (jv - j * n_vc) * kNV * kLimbs;   // (v-1)*4 + limb
+    const int r0 = j * in_size + t * kTI;
 #pragma unroll
-    for (int q = 0; q < kBCopies; ++q) {
+    for (int q = 0; q < F::kBCopies; ++q) {
       const int u = tid + kThreads * q;
       const int k = u >> 1;
       const int h = u & 1;
       const int vl = k >> 6;
-      const int8_t* src = key + ((size_t)vl * rows + r0 + (k & 63)) * n_pad
-                          + col0 + 16 * h;
+      const int8_t* src =
+          key + ((size_t)(plane0 + vl) * rows + r0 + (k & 63)) * n_pad +
+          col0 + 16 * h;
       cp_async16(raw_b + (k + (k >> 2)) * 8 + 4 * h, src, true);
     }
   };
@@ -204,7 +265,7 @@ keyswitch_kernel(const int32_t* __restrict__ a, const int8_t* __restrict__ key,
   auto store_b = [&](int st) {
     uint32_t* dst = trans + (st & 1) * kTransWords;
 #pragma unroll
-    for (int q = 0; q < kBUnits; ++q) {
+    for (int q = 0; q < F::kBUnits; ++q) {
       const int u = tid + kThreads * q;
       const int cq = u & 7;
       const int rq = (u >> 3) & 15;
@@ -239,21 +300,24 @@ keyswitch_kernel(const int32_t* __restrict__ a, const int8_t* __restrict__ key,
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
-  build_pq(pq);
+  build_a(0);
   store_b(0);
   __syncthreads();
 
   for (int st = 0; st < n_stages; ++st) {
-    const int t = st / decomp_length;
-    const int j = st - t * decomp_length;
+    const int t = st / per_tile;
+    const int jv = st - t * per_tile;
+    const int j = jv / n_vc;
+    const int v0 = jv - j * n_vc + 1;     // the stage's digit value (any base)
     // the copies for the next stage (and, at a tile's first stage, the
     // next tile's a) run while this stage computes
     if (st + 1 < n_stages) load_b(st + 1);
-    if (j == 0 && t + 1 < n_tiles) load_a(t + 1);
+    if (jv == 0 && t + 1 < n_tiles) load_a(t + 1);
     cp_async_commit();
 
     const uint32_t* tb = trans + (st & 1) * kTransWords;
     const uint32_t* pqb = pq + (t & 1) * kPQWords;
+    const uint32_t* dgb = pq + j * kDigWords;
     const int sh = 6 - 2 * (j & 3);
     const bool use_q = j >= 4;
 #pragma unroll
@@ -272,21 +336,33 @@ keyswitch_kernel(const int32_t* __restrict__ a, const int8_t* __restrict__ key,
 #pragma unroll
       for (int mf = 0; mf < 4; ++mf) {
         const int sl = 64 * wm + 16 * mf + g;
-        const uint4 plo = *reinterpret_cast<const uint4*>(
-            pqb + sl * kPQStride + 16 * c + 4 * tig);
-        const uint4 phi = *reinterpret_cast<const uint4*>(
-            pqb + (sl + 8) * kPQStride + 16 * c + 4 * tig);
-        // a0: sample g rows 8tig..+3, a1: sample g+8, a2/a3: rows +4..+7
-        const uint32_t w[4] = {use_q ? plo.y : plo.x, use_q ? phi.y : phi.x,
-                               use_q ? plo.w : plo.z, use_q ? phi.w : phi.z};
         uint32_t af[kNV][4];
+        if constexpr (kPacked) {
+          const uint4 plo = *reinterpret_cast<const uint4*>(
+              pqb + sl * kPQStride + 16 * c + 4 * tig);
+          const uint4 phi = *reinterpret_cast<const uint4*>(
+              pqb + (sl + 8) * kPQStride + 16 * c + 4 * tig);
+          // a0: sample g rows 8tig..+3, a1: sample g+8, a2/a3: rows +4..+7
+          const uint32_t w[4] = {use_q ? plo.y : plo.x, use_q ? phi.y : phi.x,
+                                 use_q ? plo.w : plo.z, use_q ? phi.w : phi.z};
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const uint32_t lo = w[r] >> sh;
-          const uint32_t hi = w[r] >> (sh + 1);
-          af[0][r] = lo & ~hi & kOnes;      // digit 1
-          af[1][r] = ~lo & hi & kOnes;      // digit 2
-          af[2][r] = lo & hi & kOnes;       // digit 3
+          for (int r = 0; r < 4; ++r) {
+            const uint32_t lo = w[r] >> sh;
+            const uint32_t hi = w[r] >> (sh + 1);
+            af[0][r] = lo & ~hi & kOnes;      // digit 1
+            af[1][r] = ~lo & hi & kOnes;      // digit 2
+            af[kNV - 1][r] = lo & hi & kOnes; // digit 3
+          }
+        } else {
+          // the same rows from the digit bytes: one compare a register
+          const uint2 dlo = *reinterpret_cast<const uint2*>(
+              dgb + sl * kDigStride + 8 * c + 2 * tig);
+          const uint2 dhi = *reinterpret_cast<const uint2*>(
+              dgb + (sl + 8) * kDigStride + 8 * c + 2 * tig);
+          const uint32_t w[4] = {dlo.x, dhi.x, dlo.y, dhi.y};
+          const uint32_t vv = (uint32_t)v0 * kOnes;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) af[0][r] = __vcmpeq4(w[r], vv) & kOnes;
         }
 #pragma unroll
         for (int v = 0; v < kNV; ++v)
@@ -299,8 +375,7 @@ keyswitch_kernel(const int32_t* __restrict__ a, const int8_t* __restrict__ key,
     cp_async_wait_all();
     __syncthreads();
     if (st + 1 < n_stages) store_b(st + 1);
-    if (j == decomp_length - 1 && t + 1 < n_tiles)
-      build_pq(pq + ((t + 1) & 1) * kPQWords);
+    if (jv == per_tile - 1 && t + 1 < n_tiles) build_a(t + 1);
     __syncthreads();
   }
 
@@ -326,23 +401,41 @@ keyswitch_kernel(const int32_t* __restrict__ a, const int8_t* __restrict__ key,
   }
 }
 
+template <bool kPacked>
+cudaError_t launch(const int32_t* a, const int8_t* ab_limbs, int32_t* out,
+                   int batch, int in_size, int decomp_length, int log2_base,
+                   int n_pad, int out_w, cudaStream_t stream) {
+  const int smem = Form<kPacked>::smem_bytes(decomp_length);
+  cudaError_t err = cudaFuncSetAttribute(
+      keyswitch_kernel<kPacked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((batch + kBM - 1) / kBM, n_pad / kBC);
+  keyswitch_kernel<kPacked><<<grid, kThreads, smem, stream>>>(
+      a, ab_limbs, out, batch, in_size, decomp_length, log2_base, n_pad,
+      out_w);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int keyswitch_launch(const void* a, const void* ab_limbs, void* out,
                                 int batch, int in_size, int decomp_length,
-                                int n_pad, int out_w, int device,
-                                void* stream) {
+                                int log2_base, int n_pad, int out_w,
+                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      keyswitch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  if (batch > 0) {
-    const dim3 grid((batch + kBM - 1) / kBM, n_pad / kBC);
-    keyswitch_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-        (const int32_t*)a, (const int8_t*)ab_limbs, (int32_t*)out, batch,
-        in_size, decomp_length, n_pad, out_w);
-  }
-  return (int)cudaGetLastError();
+  if (batch <= 0) return (int)cudaGetLastError();
+  const auto* x = (const int32_t*)a;
+  const auto* k = (const int8_t*)ab_limbs;
+  auto* o = (int32_t*)out;
+  const auto s = (cudaStream_t)stream;
+  // base 4 with its 2-bit digits in bytes 3 and 2 of a + prec (l <= 8)
+  if (log2_base == 2 && decomp_length <= 8)
+    err = launch<true>(x, k, o, batch, in_size, decomp_length, log2_base,
+                       n_pad, out_w, s);
+  else
+    err = launch<false>(x, k, o, batch, in_size, decomp_length, log2_base,
+                        n_pad, out_w, s);
+  return (int)err;
 }

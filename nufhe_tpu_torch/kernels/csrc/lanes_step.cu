@@ -1,288 +1,371 @@
 // One CMUX step of the blind rotation in the lanes layout (K4), for Hopper,
-// reading the TPU's int8 key operand in both engine modes.
+// reading the TPU's int8 key operand in both engine modes, with the MAC on
+// the int8 tensor cores.
 //
 //   acc_q' = acc_q + sum_g decomp_g((X^p - 1) * acc_q) (*) BK_row   mod 2^32
 //
 // Replaces the TPU kernel nufhe_tpu/ops/pallas/blind_rotate.py::
-// make_external_step (whose body is ops/flat_engine.external_step); the
-// output equals ops/flat_engine.external_step bit for bit.
+// make_external_step (whose body is ops/flat_engine.external_step; n
+// launches of it are blind_rotate_pallas); the output equals
+// ops/flat_engine.external_step bit for bit.
+//
+// Templated on the TLWE mask size + 1 (M), the gadget length (D) and the
+// key form; the launcher instantiates (M, D) = (2, 2), (3, 2) and (2, 3)
+// (ops/transform.KERNEL_SHAPES) and refuses any other.  G = M * D.
 //
 // Layout (the JAX package's lanes layout and key operand):
-//   acc_q   (B, 2*1024) int32, q-layout: coefficient i*32 + j at lane j*32 + i
+//   acc_q   (B, M*1024) int32, q-layout: coefficient i*32 + j at lane j*32 + i
 //   p       (B,) int32 in [0, 2048)
-//   key     one row (L=64, C=256, Q) int8, ops/transform.build_mac_rhs:
+//   key     one row (L=64, C = 64G, Q) int8, ops/transform.build_mac_rhs:
 //           c = g*64 + i*32 + u (digit polynomial g, accumulator limb i,
-//           lane u), q = s*64 + o*32 + k (group s, output polynomial o,
+//           lane u), q = s*32M + o*32 + k (group s, output polynomial o,
 //           lane k), slot axis in bit-reversed order, negacyclic signs
-//           built in; Q = 320 exact (groups B, A0..A3), 256 rounded (A0..A3)
-//   out     (B, 2*1024) int32
+//           built in; Q = 5*32M exact (groups B, A0..A3), 4*32M rounded
+//           (A0..A3)
+//   out     (B, M*1024) int32
 //
 // Three grids on the launcher's stream, one "launch" of K4:
-//   1. forward (a block of 256 threads a sample): rotation, the l=2 gadget
-//      digits, the exact int32 forward Nussbaumer transform of the 4 digit
-//      polynomials (|values| <= 2^14), split into int8 limbs a0 and a1, to
-//      scratch limbs[t][b][c] (16 KB a sample);
-//   2. MAC (a block per 64 samples and slot t): the key slot (256 x Q int8,
-//      80 KB) transposed into shared memory, the samples' limbs beside it,
-//      and the (64 x 256) . (256 x Q) product with int32 accumulation by
-//      __dp4a; each thread holds every group of its outputs, so it
-//      recombines them in registers (exact: lo = A0 + A1<<8 + A2<<16 +
-//      A3<<24 and hi = B; rounded: lo alone) and writes the channels to
-//      scratch chan[b][ch][o][t][k] (32 KB a sample exact, 16 KB rounded);
-//   3. inverse (a block a sample): the unscaled inverse transform of each
-//      channel (uint32 wraparound is the A channel's mod 2^32; the B channel
-//      stays below 2^24 and is exact), the fold, c = lo + (hi >> 6) (or lo),
-//      added to the accumulator.
+//   1. forward (a block a sample, a warp a digit polynomial): the rotation,
+//      the gadget digit and the exact forward Nussbaumer transform in the
+//      warp's registers (rotate_common.cuh, as K3 does), split into int8
+//      limbs a0, a1, to scratch limbs[t][b][c] (64G bytes a sample and
+//      slot);
+//   2. MAC (a block per slot t, looping over tiles of 64 samples): the
+//      (Q x C) . (C x 64) int8 product by mma.sync m16n8k32 s8 x s8 -> s32.
+//      The A operand is the key slot, transposed once a block into shared
+//      memory ([q][c], its K = c contiguous; 4 rows x 16 columns a thread,
+//      byte permutes, conflict-free stores); the B operand is the tile's
+//      limbs as they lie ([sample][c], 64 samples = the mma's whole N).
+//      Both read K in the same permuted order (logical k 4tig..+3 and
+//      16+4tig..+3 are c = 8tig..+3 and 8tig+4..+7 of a 32-byte chunk), so
+//      a thread's A and B fragments are one 8-byte shared load each, and the
+//      row strides (C/4 + 8 words) keep those loads free of bank conflicts.
+//      A warp owns 16 output positions (o, k) in every group and 32
+//      samples, so it holds all the groups of its outputs and recombines
+//      them in registers (exact: lo = A0 + A1<<8 + A2<<16 + A3<<24 and
+//      hi = B; rounded: lo alone), writing the channels to scratch
+//      chan[b][ch][o][t][k];
+//   3. inverse (a block a sample, a warp a channel polynomial): the
+//      unscaled inverse transform and the fold in registers, c = lo +
+//      (hi >> 6) (or lo), added to the accumulator.  uint32 wraparound is
+//      the lo channel's mod 2^32; the hi channel stays below G * 2^24 in
+//      absolute value (blind_rotate_body.cuh) and is exact in int32.
 //
-// Bound: the MAC is 64 * 256 * Q int8 multiply-adds a sample (5.24 M
-// exact), 1.72e11 operations at batch 2^14, 0.087 ms at the H100's dense
+// Bound: the MAC is 64 * C * Q int8 multiply-adds a sample (5.24 M exact at
+// (2, 2)), 1.72e11 operations at batch 2^14, 0.087 ms at the H100's dense
 // int8 tensor rate; the bytes (accumulator in and out, one key row) take
-// 0.082 ms.  This first design runs the MAC on the CUDA cores (__dp4a, a
-// quarter of a warp instruction per multiply-add) and passes the limbs and
-// the channels through device memory (about 0.8 GB at batch 2^14), so it is
-// far from that bound; the tensor-core MAC (mma.sync / wgmma on s8) and
-// keeping the intermediates on chip are later work.
+// 0.082 ms.  This design writes the limbs (64C bytes a sample) and the
+// channels (2 or 1 x 256M words a sample) to device memory and reads them
+// back in the next grid: with the accumulator read twice and written once,
+// 2.0 GB a launch at batch 2^14 and (2, 2) exact (1.5 GB rounded), 0.60 ms
+// at 3.35 TB/s.  With the MAC on the tensor cores it is bound by those
+// bytes, not by the multiply-adds.  Keeping the intermediates on chip
+// (fusing the grids) is later work.
 
-#include "cmux_body.cuh"
+#include "rotate_common.cuh"
 
 namespace {
 
-constexpr int kC = kG * 2 * kR;     // 256 MAC inputs a slot
-constexpr int kTM = 64;             // samples a MAC block
-constexpr int kKW = kC / 4 + 1;     // words a row in shared memory (padded)
-constexpr int kQExact = 5 * kMask1 * kR;
-constexpr int kQRounded = 4 * kMask1 * kR;
+constexpr int kTM = 64;             // samples a MAC tile
 
-__device__ __forceinline__ int q_of(int n) { return (n & 31) * 32 + (n >> 5); }
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int w) {
+  return w == 0 ? v.x : (w == 1 ? v.y : (w == 2 ? v.z : v.w));
+}
 
-// Phase 1: rotation, digits, forward transform, int8 limbs.
-__global__ void __launch_bounds__(kThreads)
+template <int M, int D, bool kRounded>
+struct Lanes {
+  static constexpr int kG = M * D;
+  static constexpr int kC = kG * 64;                       // MAC inputs
+  static constexpr int kGroups = kRounded ? 4 : 5;
+  static constexpr int kQ = kGroups * M * kR;              // MAC outputs
+  static constexpr int kNCh = kRounded ? 1 : 2;            // channels
+  static constexpr int kCW = kC / 4;                       // words a c-row
+  static constexpr int kStride = kCW + 8;                  // padded row
+  static constexpr int kMacWarps = 4 * M;   // 2M position tiles x 2 halves
+  static constexpr int kMacThreads = 32 * kMacWarps;
+  static constexpr int kMacSmem = (kQ + kTM) * kStride * 4;
+};
+
+// Grid 1: rotation, digits, forward transform, int8 limbs.
+template <int M, int D>
+__global__ void __launch_bounds__(32 * M * D)
 lanes_forward_kernel(const uint32_t* __restrict__ acc_q,
                      const int32_t* __restrict__ powers,
                      int8_t* __restrict__ limbs, int batch, uint32_t offset,
                      int log2_base) {
-  __shared__ uint32_t acc_s[kMask1 * kN];
-  __shared__ int32_t dig[kG * kL * kRP];
+  constexpr int kG = M * D;
+  constexpr int kC = kG * 64;
+  __shared__ uint32_t acc_s[M * kN];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const uint32_t* src_acc = acc_q + (size_t)b * kMask1 * kN;
-  for (int e = tid; e < kMask1 * kN; e += kThreads) acc_s[e] = src_acc[e];
-  // odd slots of the bit-reversed forward input are the zero padding
-  for (int e = tid; e < kG * (kL / 2) * kR; e += kThreads) {
-    const int r = e & 31;
-    const int s = ((e >> 5) & 31) * 2 + 1;
-    const int g = e >> 10;
-    dig[(g * kL + s) * kRP + r] = 0;
-  }
+  const int lane = tid & 31;
+  const int g = tid >> 5;
+  const uint32_t* src = acc_q + (size_t)b * M * kN;
+  for (int e = tid; e < M * kN; e += 32 * kG) acc_s[e] = src[e];
   const int p = powers[b] & (2 * kN - 1);
   __syncthreads();
 
-  const int base_mask = (1 << log2_base) - 1;
-  const int half = 1 << (log2_base - 1);
-  for (int e = tid; e < kMask1 * kN; e += kThreads) {
-    const int o = e >> 10;
-    const int q = e & (kN - 1);
-    const int j = q >> 5;             // slot
-    const int i = q & 31;             // lane of S'
-    const int c = i * 32 + j;         // coefficient index
-    const int src = (c - p) & (2 * kN - 1);
-    uint32_t v = acc_s[o * kN + q_of(src & (kN - 1))];
-    if (src >= kN) v = 0u - v;
-    const uint32_t shifted = v - acc_s[o * kN + q] + offset;
-    const int s = rev6(j);
+  int x[kL];
+  forward_digits(acc_s + (g / D) * kN, p, 32 - (g % D + 1) * log2_base,
+                 offset, (1 << log2_base) - 1, 1 << (log2_base - 1), lane, x);
+  // MAC slot rev6(f) holds frequency f, as the key's slot axis does
 #pragma unroll
-    for (int d = 0; d < kDecomp; ++d) {
-      const int digit =
-          (int)((shifted >> (32 - (d + 1) * log2_base)) & base_mask) - half;
-      dig[((o * kDecomp + d) * kL + s) * kRP + i] = digit;
-    }
-  }
-  __syncthreads();
-
-  dft_l<int32_t, kG>(dig, false);     // natural frequency order
-
-  // MAC slot p holds frequency rev6(p), as the key's slot axis does
-  for (int e = tid; e < kG * kL * kR; e += kThreads) {
-    const int u = e & 31;
-    const int t = (e >> 5) & 63;
-    const int g = e >> 11;
-    const int v = dig[(g * kL + rev6(t)) * kRP + u];
-    const int a0 = ((v + 128) & 255) - 128;
-    const int a1 = (v - a0) >> 8;
-    int8_t* dst = limbs + ((size_t)t * batch + b) * kC + g * 2 * kR;
-    dst[u] = (int8_t)a0;
-    dst[kR + u] = (int8_t)a1;
+  for (int f = 0; f < kL; ++f) {
+    int8_t* dst = limbs + ((size_t)rev6c(f) * batch + b) * kC + g * 2 * kR;
+    dst[lane] = (int8_t)limb0(x[f]);
+    dst[kR + lane] = (int8_t)limb1(x[f]);
   }
 }
 
-// Phase 2: per slot, (samples x 256) . (256 x Q) int8, int32 sums, groups
-// recombined into the channels.  Thread (qg = tid % 16, mg = tid / 16) owns
-// samples mg + 16*a (a < 4) and columns qg + 16*j, j < Q/16; column
-// qg + 16*(jj + 4*s) is group s of output position pos = qg + 16*jj.
-template <int kQ>
-__global__ void __launch_bounds__(kThreads)
+// Grid 2: per slot, (Q x C) . (C x samples) int8 on the tensor cores, the
+// groups recombined into the channels.
+template <int M, int D, bool kRounded>
+__global__ void __launch_bounds__(Lanes<M, D, kRounded>::kMacThreads)
 lanes_mac_kernel(const int8_t* __restrict__ limbs,
-                 const int8_t* __restrict__ key,
-                 uint32_t* __restrict__ chan, int batch) {
-  constexpr int kNB = kQ / 16;
-  constexpr bool kExact = kQ == kQExact;
-  constexpr int kNCh = kExact ? 2 : 1;
-  extern __shared__ uint32_t smem[];
-  uint32_t* key_t = smem;                 // [q][c/4], kKW words a row
-  uint32_t* lhs = smem + kQ * kKW;        // [m][c/4]
+                 const int8_t* __restrict__ key, uint32_t* __restrict__ chan,
+                 int batch) {
+  using S = Lanes<M, D, kRounded>;
+  constexpr int kC = S::kC;
+  constexpr int kQ = S::kQ;
+  constexpr int kCW = S::kCW;
+  constexpr int kStride = S::kStride;
+  constexpr int kThreads = S::kMacThreads;
+  constexpr int kGroups = S::kGroups;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* key_t = smem;                  // [q][kStride]: bytes c of row q
+  uint32_t* lhs = smem + kQ * kStride;     // [sample][kStride]
   const int t = blockIdx.y;
-  const int m0 = blockIdx.x * kTM;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
 
+  // the key slot, transposed: a thread takes rows 4cq..4cq+3 and columns
+  // 16qb..16qb+15 (4 loads of 16 bytes), 4 x 4 byte blocks transposed with
+  // 8 byte permutes each; consecutive lanes take consecutive cq, so the 16
+  // stores of a thread hit 32 banks across the warp
   const int8_t* key_slot = key + (size_t)t * kC * kQ;
-  for (int e = tid; e < kQ * (kC / 4); e += kThreads) {
-    const int q = e % kQ;
-    const int cw = e / kQ;
-    uint32_t word = 0;
+  for (int task = tid; task < kCW * (kQ / 16); task += kThreads) {
+    const int cq = task % kCW;
+    const int qb = task / kCW;
+    uint4 r[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-      word |= (uint32_t)(uint8_t)key_slot[(4 * cw + r) * kQ + q] << (8 * r);
-    key_t[q * kKW + cw] = word;
+    for (int i = 0; i < 4; ++i)
+      r[i] = *reinterpret_cast<const uint4*>(key_slot + (size_t)(4 * cq + i) * kQ
+                                             + 16 * qb);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const uint32_t r0 = word_of(r[0], w), r1 = word_of(r[1], w);
+      const uint32_t r2 = word_of(r[2], w), r3 = word_of(r[3], w);
+      const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
+      const uint32_t t1 = __byte_perm(r0, r1, 0x7362);
+      const uint32_t t2 = __byte_perm(r2, r3, 0x5140);
+      const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
+      uint32_t* dst = key_t + (16 * qb + 4 * w) * kStride + cq;
+      dst[0] = __byte_perm(t0, t2, 0x5410);
+      dst[kStride] = __byte_perm(t0, t2, 0x7632);
+      dst[2 * kStride] = __byte_perm(t1, t3, 0x5410);
+      dst[3 * kStride] = __byte_perm(t1, t3, 0x7632);
+    }
   }
-  for (int e = tid; e < kTM * (kC / 4); e += kThreads) {
-    const int m = e / (kC / 4);
-    const int cw = e % (kC / 4);
-    uint32_t word = 0;
-    if (m0 + m < batch)
-      word = reinterpret_cast<const uint32_t*>(
-          limbs + ((size_t)t * batch + m0 + m) * kC)[cw];
-    lhs[m * kKW + cw] = word;
-  }
-  __syncthreads();
 
-  const int qg = tid & 15;
-  const int mg = tid >> 4;
-  int sum[4][kNB];
+  // warp roles: 16 output positions pt*16.. of every group, 32 samples
+  const int pt = warp % (2 * M);
+  const int nh = warp / (2 * M);
+  const int n_tiles = (batch + kTM - 1) / kTM;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m0 = tile * kTM;
+    __syncthreads();   // the key is written; the last tile's lhs is read
+    for (int e = tid; e < kTM * (kCW / 4); e += kThreads) {
+      const int m = e / (kCW / 4);
+      const int c4 = e % (kCW / 4);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + m < batch)
+        v = *reinterpret_cast<const uint4*>(
+            limbs + ((size_t)t * batch + m0 + m) * kC + 16 * c4);
+      *reinterpret_cast<uint4*>(lhs + m * kStride + 4 * c4) = v;
+    }
+    __syncthreads();
+
+    int d[kGroups][4][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+    for (int s = 0; s < kGroups; ++s)
 #pragma unroll
-    for (int j = 0; j < kNB; ++j) sum[a][j] = 0;
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[s][nt][e] = 0;
 #pragma unroll 2
-  for (int cw = 0; cw < kC / 4; ++cw) {
-    int x[4];
+    for (int kc = 0; kc < kC / 32; ++kc) {
+      uint2 bf[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) x[a] = (int)lhs[(mg + 16 * a) * kKW + cw];
+      for (int nt = 0; nt < 4; ++nt)
+        bf[nt] = *reinterpret_cast<const uint2*>(
+            lhs + (nh * 32 + nt * 8 + gid) * kStride + kc * 8 + 2 * tig);
 #pragma unroll
-    for (int j = 0; j < kNB; ++j) {
-      const int w = (int)key_t[(qg + 16 * j) * kKW + cw];
+      for (int s = 0; s < kGroups; ++s) {
+        const int q = s * M * kR + pt * 16 + gid;
+        const uint2 alo = *reinterpret_cast<const uint2*>(
+            key_t + q * kStride + kc * 8 + 2 * tig);
+        const uint2 ahi = *reinterpret_cast<const uint2*>(
+            key_t + (q + 8) * kStride + kc * 8 + 2 * tig);
 #pragma unroll
-      for (int a = 0; a < 4; ++a) sum[a][j] = __dp4a(x[a], w, sum[a][j]);
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int m = m0 + mg + 16 * a;
-    if (m >= batch) continue;
-    uint32_t* dst = chan + (size_t)m * kNCh * kMask1 * kL * kR;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int pos = qg + 16 * jj;
-      const int o = pos >> 5;
-      const int k = pos & 31;
-      const size_t at = ((size_t)o * kL + t) * kR + k;
-      uint32_t lo;
-      if (kExact) {
-        lo = (uint32_t)sum[a][jj + 4] + ((uint32_t)sum[a][jj + 8] << 8) +
-             ((uint32_t)sum[a][jj + 12] << 16) +
-             ((uint32_t)sum[a][jj + 16] << 24);
-        dst[kMask1 * kL * kR + at] = (uint32_t)sum[a][jj];
-      } else {
-        lo = (uint32_t)sum[a][jj] + ((uint32_t)sum[a][jj + 4] << 8) +
-             ((uint32_t)sum[a][jj + 8] << 16) +
-             ((uint32_t)sum[a][jj + 12] << 24);
+        for (int nt = 0; nt < 4; ++nt)
+          mma_s8(d[s][nt], alo.x, ahi.x, alo.y, ahi.y, bf[nt].x, bf[nt].y);
       }
-      dst[at] = lo;
     }
+
+    // recombine the groups of output (o, k) for sample m
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + nh * 32 + nt * 8 + 2 * tig + (e & 1);
+        if (m >= batch) continue;
+        const int pos = pt * 16 + gid + (e >= 2 ? 8 : 0);
+        const int o = pos >> 5;
+        const int k = pos & 31;
+        const int a = kRounded ? 0 : 1;
+        const uint32_t lo = (uint32_t)d[a][nt][e] +
+                            ((uint32_t)d[a + 1][nt][e] << 8) +
+                            ((uint32_t)d[a + 2][nt][e] << 16) +
+                            ((uint32_t)d[a + 3][nt][e] << 24);
+        uint32_t* dst = chan + (size_t)m * S::kNCh * M * kL * kR +
+                        ((size_t)o * kL + t) * kR + k;
+        dst[0] = lo;
+        if (!kRounded) dst[M * kL * kR] = (uint32_t)d[0][nt][e];
+      }
   }
 }
 
-// Phase 3: inverse transform of the channels, fold, normalise, accumulate.
-template <bool kExact>
-__global__ void __launch_bounds__(kThreads)
+// Grid 3: inverse transform of the channels, fold, normalise, accumulate.
+template <int M, bool kExact>
+__global__ void __launch_bounds__(32 * M * (kExact ? 2 : 1))
 lanes_inverse_kernel(const uint32_t* __restrict__ acc_in,
                      uint32_t* __restrict__ acc_out,
                      const uint32_t* __restrict__ chan) {
   constexpr int kNCh = kExact ? 2 : 1;
-  constexpr int kPolys = kNCh * kMask1;
-  __shared__ uint32_t data[kPolys * kL * kRP];
+  __shared__ uint32_t hi_s[kExact ? M * kN : 1];
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const uint32_t* src = chan + (size_t)b * kPolys * kL * kR;
-  for (int e = tid; e < kPolys * kL * kR; e += kThreads)
-    data[(e >> 5) * kRP + (e & 31)] = src[e];   // row (poly, slot), lane
-  __syncthreads();
-
-  dft_l<uint32_t, kPolys>(data, true);          // bit-reversed in, natural out
-
-  const size_t row = (size_t)b * kMask1 * kN;
-  for (int e = tid; e < kMask1 * kN; e += kThreads) {
-    const int o = e >> 10;
-    const int c = e & (kN - 1);
-    const int i = c >> 5;
-    const int j = c & 31;
-    // C_j = P_j + Y P_{j+32}; c[i*32 + j] = C_j[i]
-    const uint32_t* pj = data + (o * kL + j) * kRP;
-    const uint32_t* pm = data + (o * kL + j + 32) * kRP;
-    uint32_t delta = pj[i] + ((i == 0) ? (0u - pm[31]) : pm[i - 1]);
-    if (kExact) {
-      const uint32_t* hj = data + ((kMask1 + o) * kL + j) * kRP;
-      const uint32_t* hm = data + ((kMask1 + o) * kL + j + 32) * kRP;
-      const uint32_t hi = hj[i] + ((i == 0) ? (0u - hm[31]) : hm[i - 1]);
-      delta += (uint32_t)((int32_t)hi >> 6);   // exact: hi is a multiple of 64
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;          // ch * M + o
+  const int o = warp % M;
+  const bool hi_warp = warp >= M;
+  const uint32_t* src = chan + ((size_t)b * kNCh * M + warp) * kL * kR;
+  uint32_t x[kL];
+#pragma unroll
+  for (int r = 0; r < kL; ++r) x[r] = src[r * kR + lane];
+  inverse_fold(x, lane);   // bit-reversed slots in; x[j] at q-layout j*32+i
+  if (kExact) {
+    if (hi_warp) {
+#pragma unroll
+      for (int j = 0; j < kL / 2; ++j)
+        hi_s[o * kN + j * 32 + lane] = (uint32_t)((int32_t)x[j] >> 6);
     }
-    const size_t at = row + o * kN + j * 32 + i;
-    acc_out[at] = acc_in[at] + delta;
+    __syncthreads();
+  }
+  if (!hi_warp) {
+    const size_t row = (size_t)b * M * kN + o * kN;
+#pragma unroll
+    for (int j = 0; j < kL / 2; ++j) {
+      uint32_t delta = x[j];
+      if (kExact) delta += hi_s[o * kN + j * 32 + lane];
+      acc_out[row + j * 32 + lane] = acc_in[row + j * 32 + lane] + delta;
+    }
   }
 }
 
-template <int kQ>
-cudaError_t launch_mac(const int8_t* limbs, const int8_t* key, uint32_t* chan,
-                       int batch, cudaStream_t stream) {
-  const int smem = (kQ + kTM) * kKW * (int)sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      lanes_mac_kernel<kQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((batch + kTM - 1) / kTM, kL);
-  lanes_mac_kernel<kQ><<<grid, kThreads, smem, stream>>>(limbs, key, chan,
-                                                         batch);
-  return cudaGetLastError();
+template <int M, int D, bool kRounded>
+cudaError_t launch(const uint32_t* acc_in, uint32_t* acc_out,
+                   const int32_t* powers, const int8_t* key, int8_t* limbs,
+                   uint32_t* chan, int batch, uint32_t offset, int log2_base,
+                   int grids, cudaStream_t stream) {
+  using S = Lanes<M, D, kRounded>;
+  cudaError_t err;
+  if (grids & 1) {
+    lanes_forward_kernel<M, D><<<batch, 32 * M * D, 0, stream>>>(
+        acc_in, powers, limbs, batch, offset, log2_base);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (grids & 2) {
+    auto kernel = lanes_mac_kernel<M, D, kRounded>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kMacSmem);
+    if (err != cudaSuccess) return err;
+    // as many sample-tile columns a slot as fill the card in one wave:
+    // each block transposes its key slot once and walks tiles with that
+    // stride
+    int dev = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, S::kMacThreads, S::kMacSmem);
+    if (err != cudaSuccess) return err;
+    const int n_tiles = (batch + kTM - 1) / kTM;
+    int cols = sms * (per_sm > 0 ? per_sm : 1) / kL;
+    cols = cols < 1 ? 1 : (cols < n_tiles ? cols : n_tiles);
+    kernel<<<dim3(cols, kL), S::kMacThreads, S::kMacSmem, stream>>>(
+        limbs, key, chan, batch);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (grids & 4) {
+    lanes_inverse_kernel<M, !kRounded>
+        <<<batch, 32 * M * S::kNCh, 0, stream>>>(acc_in, acc_out, chan);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int M, int D>
+cudaError_t launch_form(const uint32_t* acc_in, uint32_t* acc_out,
+                        const int32_t* powers, const int8_t* key,
+                        int8_t* limbs, uint32_t* chan, int batch,
+                        uint32_t offset, int log2_base, int rounded, int grids,
+                        cudaStream_t stream) {
+  return rounded
+      ? launch<M, D, true>(acc_in, acc_out, powers, key, limbs, chan, batch,
+                           offset, log2_base, grids, stream)
+      : launch<M, D, false>(acc_in, acc_out, powers, key, limbs, chan, batch,
+                            offset, log2_base, grids, stream);
 }
 
 }  // namespace
 
-// limbs: kL * batch * 256 int8 of scratch; chan: batch * 2 * 2 * 64 * 32
-// int32 of scratch (half of it in the rounded form).
+// limbs: 64 * batch * 64G int8 of scratch; chan: batch * (2 or 1) * M * 64
+// * 32 int32 of scratch.  grids: a bit mask of the grids to run (1
+// forward, 2 MAC, 4 inverse; 7 is the step), so that they can be timed
+// apart.
 extern "C" int lanes_step_launch(const void* acc_in, void* acc_out,
                                  const void* powers, const void* key,
                                  void* limbs, void* chan, int batch,
-                                 unsigned int offset, int log2_base,
-                                 int rounded, int device, void* stream) {
+                                 int mask1, int decomp, unsigned int offset,
+                                 int log2_base, int rounded, int grids,
+                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (batch <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  lanes_forward_kernel<<<batch, kThreads, 0, s>>>(
-      (const uint32_t*)acc_in, (const int32_t*)powers, (int8_t*)limbs, batch,
-      (uint32_t)offset, log2_base);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = rounded ? launch_mac<kQRounded>((const int8_t*)limbs,
-                                        (const int8_t*)key, (uint32_t*)chan,
-                                        batch, s)
-                : launch_mac<kQExact>((const int8_t*)limbs, (const int8_t*)key,
-                                      (uint32_t*)chan, batch, s);
-  if (err != cudaSuccess) return (int)err;
-  if (rounded)
-    lanes_inverse_kernel<false><<<batch, kThreads, 0, s>>>(
-        (const uint32_t*)acc_in, (uint32_t*)acc_out, (const uint32_t*)chan);
+  const auto* in = (const uint32_t*)acc_in;
+  auto* out = (uint32_t*)acc_out;
+  const auto* pw = (const int32_t*)powers;
+  const auto* k = (const int8_t*)key;
+  auto* lb = (int8_t*)limbs;
+  auto* ch = (uint32_t*)chan;
+  const auto s = (cudaStream_t)stream;
+  if (mask1 == 2 && decomp == 2)
+    err = launch_form<2, 2>(in, out, pw, k, lb, ch, batch, offset, log2_base,
+                            rounded, grids, s);
+  else if (mask1 == 3 && decomp == 2)
+    err = launch_form<3, 2>(in, out, pw, k, lb, ch, batch, offset, log2_base,
+                            rounded, grids, s);
+  else if (mask1 == 2 && decomp == 3)
+    err = launch_form<2, 3>(in, out, pw, k, lb, ch, batch, offset, log2_base,
+                            rounded, grids, s);
   else
-    lanes_inverse_kernel<true><<<batch, kThreads, 0, s>>>(
-        (const uint32_t*)acc_in, (uint32_t*)acc_out, (const uint32_t*)chan);
-  return (int)cudaGetLastError();
+    err = cudaErrorInvalidValue;
+  return (int)err;
 }

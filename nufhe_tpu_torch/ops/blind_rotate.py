@@ -7,7 +7,7 @@ function of the TPU kernel
 equals ``chunk`` sequential K1 steps (``ops/cmux.py``) bit for bit.  In the
 port's layout:
 
-- ``acc``: (B, 2, N) int32;
+- ``acc``: (B, mask1, N) int32;
 - ``bara_t``: (n, B) int32 in [0, 2N), one row of rotation amounts a step;
 - ``key``: the whole transformed key of ``ops/transform``, int64:
   (n, G, O, L, R) exact or (n, 2, G, O, L, R) rounded.
@@ -36,14 +36,14 @@ def blind_rotate_chunk(acc, bara_t, key, start, chunk, *, offset, log2_base):
     tensor runs the kernel; a CPU tensor the plain version.  Returns a new
     tensor (``acc`` is not updated in place)."""
     global launches
-    cmux.check_acc(acc, "blind_rotate_chunk")
+    mask1 = cmux.check_acc(acc, "blind_rotate_chunk")
     if bara_t.dtype != torch.int32:
         raise TypeError("blind_rotate_chunk takes int32 rotation amounts")
     if bara_t.dim() != 2 or bara_t.shape[1] != acc.shape[0]:
         raise ValueError("bara_t must be (n, B), got %s for B = %d"
                          % (tuple(bara_t.shape), acc.shape[0]))
     n = bara_t.shape[0]
-    rounded = cmux.check_key(key, (n,), "blind_rotate_chunk")
+    rounded = cmux.check_key(key, (n,), "blind_rotate_chunk", mask1)
     start, chunk = int(start), int(chunk)
     if chunk < 1 or start < 0 or start + chunk > n:
         raise ValueError("steps [%d, %d) are not inside the %d-step rotation"
@@ -61,13 +61,15 @@ def blind_rotate_chunk(acc, bara_t, key, start, chunk, *, offset, log2_base):
         raise ValueError("blind_rotate_chunk takes contiguous tensors")
     if not 1 <= log2_base <= 16:
         raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
+    _, decomp_length = cmux.kernel_shape(key, mask1, "blind_rotate_chunk")
     from ..kernels import build
     fn = build.entry("blind_rotate_chunk")
     out = torch.empty_like(acc)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
     code = fn(acc.data_ptr(), out.data_ptr(), bara_t.data_ptr(), key.data_ptr(),
-              acc.shape[0], start, chunk, int(offset) & 0xFFFFFFFF,
-              int(log2_base), int(rounded), acc.device.index, stream)
+              acc.shape[0], start, chunk, mask1, decomp_length,
+              int(offset) & 0xFFFFFFFF, int(log2_base), int(rounded),
+              acc.device.index, stream)
     build.check("blind_rotate_chunk", code)
     launches += 1
     return out

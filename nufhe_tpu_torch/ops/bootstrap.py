@@ -64,8 +64,12 @@ def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
     """
     n = bara.shape[-1]
     lanes_key = bk_dev.dtype == torch.int8
-    check = lanes.check_key if lanes_key else cmux.check_key
-    if check(bk_dev, (n,), "blind_rotate") == exact:
+    if lanes_key:
+        rounded = lanes.check_key(bk_dev, (n,), "blind_rotate")
+    else:
+        rounded = cmux.check_key(bk_dev, (n,), "blind_rotate",
+                                 accum_a.shape[-2])
+    if rounded == exact:
         raise ValueError("the key's form does not match the %s engine"
                          % ("exact" if exact else "rounded-key"))
     kw = dict(offset=int(tgsw_params.offset),

@@ -13,7 +13,9 @@ negacyclic in Z[X]/(N=1024), mod 2^32 — the function of the TPU kernel
   int64: (G = mask1*l, O = mask1, L, R) for the exact engine, or
   (2, G, O, L, R) for the rounded-key engine, whose MAC reads side 1 on
   the terms that wrap around the negacyclic convolution.  The row's shape
-  selects the form.
+  selects the form; the accumulator gives mask1 and the key G = mask1*l.
+  The kernel is built for the (mask1, l) pairs of
+  ``ops/transform.KERNEL_SHAPES`` and raises on any other.
 """
 
 import torch
@@ -23,9 +25,6 @@ from . import transform as tf
 
 # launches of the CUDA kernel (not of the plain version)
 launches = 0
-
-EXACT_ROW = (4, 2, tf.L, tf.R)
-ROUNDED_ROW = (2,) + EXACT_ROW
 
 
 def _digits(acc, p, offset, log2_base, decomp_length):
@@ -47,9 +46,10 @@ def _digits(acc, p, offset, log2_base, decomp_length):
 
 def cmux_step_plain(acc, p, key_row, *, offset, log2_base):
     """Plain PyTorch version of K1; any device.  The transform-domain MAC is
-    a broadcast multiply-sum in int64 (no value passes 2^58), reduced mod
-    2^38 before the inverse."""
-    rounded = key_row.dim() == len(ROUNDED_ROW)
+    a broadcast multiply-sum in int64, reduced mod 2^38 before the
+    inverse: |dhat| <= 32 * 2^(log2_base-1) = 2^14 and |key| <= 2^37, so a
+    sum of 32 * G products stays below G * 2^56 (2^58.6 at G = 6)."""
+    rounded = key_row.dim() == 5
     g_size, o_size = key_row.shape[-4:-2]
     decomp_length = g_size // acc.shape[1]
     dig = _digits(acc, p, int(offset), log2_base, decomp_length)
@@ -76,32 +76,53 @@ def cmux_step_plain(acc, p, key_row, *, offset, log2_base):
 
 
 def check_acc(acc, name):
+    """``acc`` is an int32 (B, mask1, N) accumulator; returns mask1."""
     if acc.dtype != torch.int32:
         raise TypeError("%s takes an int32 accumulator" % name)
-    if acc.dim() != 3 or acc.shape[1:] != (2, tf.N):
-        raise ValueError("acc must be (B, 2, 1024), got %s" % (tuple(acc.shape),))
+    if acc.dim() != 3 or acc.shape[2] != tf.N:
+        raise ValueError("acc must be (B, mask1, %d), got %s"
+                         % (tf.N, tuple(acc.shape)))
+    return acc.shape[1]
 
 
-def check_key(key, rows_shape, name):
-    """``key`` is int64 of shape ``rows_shape`` + one row form; returns
-    whether it is the rounded (two-sided) form."""
+def check_key(key, rows_shape, name, mask1=None):
+    """``key`` is int64 of shape ``rows_shape`` + one row form, (G, O, L,
+    R) exact or (2, G, O, L, R) rounded, with O = mask1 (the
+    accumulator's, when given) dividing G; returns whether it is the
+    rounded form."""
     if key.dtype != torch.int64:
         raise TypeError("%s takes an int64 key" % name)
     tail = tuple(key.shape[len(rows_shape):])
+    rounded = len(tail) == 5
+    g_size, o_size = tail[-4:-2] if len(tail) in (4, 5) else (0, 0)
     if tuple(key.shape[:len(rows_shape)]) != tuple(rows_shape) \
-            or tail not in (EXACT_ROW, ROUNDED_ROW):
-        raise ValueError("%s: key must be %s + %s or %s, got %s"
-                         % (name, tuple(rows_shape), EXACT_ROW, ROUNDED_ROW,
+            or len(tail) not in (4, 5) or (rounded and tail[0] != 2) \
+            or tail[-2:] != (tf.L, tf.R) or not o_size \
+            or g_size % o_size or (mask1 is not None and o_size != mask1):
+        raise ValueError("%s: key must be %s + (G, O, %d, %d) or (2, G, O, "
+                         "%d, %d) with O = mask1%s dividing G, got %s"
+                         % (name, tuple(rows_shape), tf.L, tf.R, tf.L, tf.R,
+                            "" if mask1 is None else " = %d" % mask1,
                             tuple(key.shape)))
-    return tail == ROUNDED_ROW
+    return rounded
+
+
+def kernel_shape(key, mask1, name):
+    """(mask1, l) of a checked key, for a kernel launch; raises ValueError
+    for a pair that no kernel instantiates."""
+    decomp_length = key.shape[-4] // mask1
+    if (mask1, decomp_length) not in tf.KERNEL_SHAPES:
+        raise ValueError("the %s kernel takes (mask1, l) in %s, not (%d, %d)"
+                         % (name, tf.KERNEL_SHAPES, mask1, decomp_length))
+    return mask1, decomp_length
 
 
 def cmux_step(acc, p, key_row, *, offset, log2_base):
     """K1: one CMUX step.  A CUDA tensor runs the kernel; a CPU tensor the
     plain version.  Returns a new tensor."""
     global launches
-    check_acc(acc, "cmux_step")
-    rounded = check_key(key_row, (), "cmux_step")
+    mask1 = check_acc(acc, "cmux_step")
+    rounded = check_key(key_row, (), "cmux_step", mask1)
     if p.dtype != torch.int32:
         raise TypeError("cmux_step takes int32 powers")
     if p.shape != (acc.shape[0],):
@@ -118,13 +139,14 @@ def cmux_step(acc, p, key_row, *, offset, log2_base):
         raise ValueError("cmux_step takes contiguous tensors")
     if not 1 <= log2_base <= 16:
         raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
+    _, decomp_length = kernel_shape(key_row, mask1, "cmux_step")
     from ..kernels import build
     fn = build.entry("cmux_step")
     out = torch.empty_like(acc)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
     code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), key_row.data_ptr(),
-              acc.shape[0], int(offset) & 0xFFFFFFFF, int(log2_base),
-              int(rounded), acc.device.index, stream)
+              acc.shape[0], mask1, decomp_length, int(offset) & 0xFFFFFFFF,
+              int(log2_base), int(rounded), acc.device.index, stream)
     build.check("cmux_step", code)
     launches += 1
     return out

@@ -90,8 +90,11 @@ def keyswitch_totals(a, ab_limbs, *, out_size, decomp_length, log2_base):
                                       log2_base=log2_base)
     if a.device.type != 'cuda':
         raise ValueError("keyswitch runs on CUDA or CPU, not %s" % a.device)
-    if log2_base != 2 or ab_limbs.shape[0] != 3 or decomp_length > 8:
-        raise ValueError("the keyswitch kernel takes base 4 and l <= 8")
+    if ab_limbs.shape[0] != (1 << log2_base) - 1 \
+            or not 1 <= log2_base * decomp_length <= 31:
+        raise ValueError("the keyswitch kernel takes base - 1 = %d digit "
+                         "planes and 1 <= log2_base * l <= 31"
+                         % ab_limbs.shape[0])
     if a.shape[1] % 64 or ab_limbs.shape[3] % 32:
         raise ValueError("the keyswitch kernel takes in_size % 64 == 0 and "
                          "n_pad % 32 == 0")
@@ -103,8 +106,8 @@ def keyswitch_totals(a, ab_limbs, *, out_size, decomp_length, log2_base):
                       device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = fn(a.data_ptr(), ab_limbs.data_ptr(), out.data_ptr(), a.shape[0],
-              a.shape[1], decomp_length, ab_limbs.shape[3], out_size + 2,
-              a.device.index, stream)
+              a.shape[1], decomp_length, int(log2_base), ab_limbs.shape[3],
+              out_size + 2, a.device.index, stream)
     build.check("keyswitch", code)
     launches += 1
     return out

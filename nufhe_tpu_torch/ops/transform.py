@@ -148,6 +148,11 @@ ACC_LIMBS = 2
 SHIFT_GROUPS = 5          # MAC output groups [B, A0..A3]
 SHIFT_GROUPS_APPROX = 4   # rounded key: [A0..A3]
 
+# (mask1, l) pairs that the CUDA kernels K1, K3 and K4 are built for: the
+# default (mask size 1, l = 2) and the JAX package's one-knob variants
+# tlwe_mask_size=2 and bs_decomp_length=3
+KERNEL_SHAPES = ((2, 2), (3, 2), (2, 3))
+
 
 def _limb_split_38(v, exact=True):
     """Centred int64 values in [-2^37, 2^37) -> int8 limbs (..., KL):

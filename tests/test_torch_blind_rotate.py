@@ -180,8 +180,8 @@ def test_wrappers_reject_bad_input():
         brc.blind_rotate_chunk(acc, bara_t, key, -1, 2, **KW)
     with pytest.raises(ValueError):      # key rows != steps
         brc.blind_rotate_chunk(acc, bara_t, key[:2], 0, 2, **KW)
-    with pytest.raises(ValueError):      # not a key form
-        brc.blind_rotate_chunk(acc, bara_t, key[:, :2], 0, 2, **KW)
+    with pytest.raises(ValueError):      # not a key form: G = 3, O = 2
+        brc.blind_rotate_chunk(acc, bara_t, key[:, :3], 0, 2, **KW)
     with pytest.raises(TypeError):
         brc.blind_rotate_chunk(acc, bara_t, key.to(torch.int32), 0, 2, **KW)
     with pytest.raises(TypeError):

@@ -121,7 +121,7 @@ def test_cmux_wrapper_rejects_bad_input():
         cmux.cmux_step(acc[:, :1], p, key, **kw)
     with pytest.raises(ValueError):
         cmux.cmux_step(acc, p[:1], key, **kw)
-    with pytest.raises(ValueError):
-        cmux.cmux_step(acc, p, key[:2], **kw)
+    with pytest.raises(ValueError):      # G = 3 is not a multiple of O = 2
+        cmux.cmux_step(acc, p, key[:3], **kw)
     with pytest.raises(ValueError):
         ttf.bootstrap_key_transformed(bk_coeff, "cpu", transform_type='FFTW')
