@@ -45,12 +45,32 @@ and prints no result line):
    both engines, on the default path (2 K3 + 1 K2) and the lanes path (100
    K4 + 1 K2) at ``lwe_size=100`` (to keep host keygen and the run short),
    each checked the same way;
-5. timing at batch 2^14: warm ms/bit of the NAND in both engines on the
+5. containers: each cloud key (both engines) through ``dumps()`` and
+   ``NuFHECloudKey.loads`` (format 4: limbs only), with its bytes and its
+   seconds of load and key preparation on the card; the loaded key's NAND
+   on the 4096 inputs equals the original key's bit for bit on the
+   default path (10 K3 + 1 K2) and the lanes path (500 K4 + 1 K2); the
+   ciphertext and secret-key round trips;
+6. the integer circuits at the default parameters through
+   ``VirtualMachine.uint_*``/``int_*`` on the default path: 16-bit
+   ``uint_add`` (4096 integers ripple, 1024 Kogge-Stone, 4096 against a
+   broadcast (1, 16) operand), ``uint_sub`` (1024, both forms),
+   ``uint_lt``/``uint_eq``/``uint_min`` (4096), ``uint_min`` in 'FFT'
+   (1024), ``int_add``/``int_gt``/``int_neg`` (1024), 8-bit ``uint_mul``
+   (1024, ripple) and ``uint_divmod`` (256, some divisors 0); each
+   decrypts to numpy's answer on every integer with its largest phase
+   error inside the margin, and each 16-bit addition and subtraction has
+   the K3 and K2 launches its circuit implies (10 K3 + 1 K2 a
+   bootstrapped call: 3w calls ripple, ``kogge_stone_calls`` more);
+7. the ripple / Kogge-Stone crossover: ``uint_add`` at batch {1, 16, 128,
+   1024} x width {8, 16}, one synchronised host-clock time a form after a
+   checked first call, printed as one ``adder_crossover`` JSON line;
+8. timing at batch 2^14: warm ms/bit of the NAND in both engines on the
    default path, the per-step path and the lanes path, and of MUX; each
    kernel's ms per launch beside its plain version (whose output it
    equals there too), a PyTorch library call where one computes the same
    function, and its bound; K4's three grids timed apart;
-6. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
+9. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The bound of a kernel is the larger of its bytes (each input read once,
@@ -94,6 +114,10 @@ VARIANT_SHAPES = ((3, 2), (2, 3))
 VARIANT_LWE = 100
 VARIANTS = (dict(tlwe_mask_size=2), dict(bs_decomp_length=3),
             dict(ks_log2_base=3))
+INT_BATCH = 1024           # integers of the smaller integer circuits
+DIV_BATCH = 256            # integers of the divider
+CROSSOVER_BATCHES = (1, 16, 128, 1024)
+CROSSOVER_WIDTHS = (8, 16)
 
 
 def nvidia_smi_line():
@@ -479,7 +503,223 @@ def gate_paths(nft, dev, rng):
                     (cx, cy), out, lanes)
     run_gate(nft, "lanes NTT", secret, vms["lanes NTT"], "gate_mux",
              (cx, cy, cz), np.where(x, y, z), lanes_counts)
-    return launches, secret, cloud, cloud_fft, vms
+    nand = dict(x=x, y=y, cx=cx, cy=cy, out=default_out)
+    return launches, secret, cloud, cloud_fft, vms, nand
+
+
+def containers_on_card(nft, dev, secret, cloud, cloud_fft, nand):
+    """The cloud key's container (format 4) in both modes, loaded and run
+    on the default path (10 K3 + 1 K2) and the lanes path (500 K4 + 1 K2):
+    the NAND on the gate paths' 4096 inputs equals the original key's bit
+    for bit.  Then the ciphertext and secret-key round trips."""
+    none = dict.fromkeys(KERNEL_NAMES, 0)
+    paths = (("default", None,
+              dict(none, blind_rotate_chunk=N_LWE // CHUNK, keyswitch=1)),
+             ("lanes", nft.PerformanceParameters(single_kernel_bootstrap=False),
+              dict(none, lanes_step=N_LWE, keyswitch=1)))
+    x, y, cx, cy = nand["x"], nand["y"], nand["cx"], nand["cy"]
+    for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
+        data = c.dumps()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loaded = nft.NuFHECloudKey.loads(data)
+        t1 = time.time()
+        loaded.bootstrap_key.device(dev)
+        loaded.keyswitch_key.device(dev)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        loaded.bootstrap_key.mac_rhs(dev)
+        torch.cuda.synchronize()
+        t3 = time.time()
+        print("%s cloud key container: %d bytes; load %.3f s, then on the "
+              "card the rows key and the keyswitch key %.3f s, the lanes key "
+              "%.3f s; %.3f s in all"
+              % (mode, len(data), t1 - t0, t2 - t1, t3 - t2, t3 - t0))
+        if loaded.bootstrap_key.bk_coeff is not None:
+            raise AssertionError("a loaded key should hold limbs only")
+        for path, perf, expect in paths:
+            label = "loaded %s key, %s path" % (mode, path)
+            vm = nft.VirtualMachine(loaded, perf, device=dev)
+            out, _ = run_gate(nft, label, secret, vm, "gate_nand", (cx, cy),
+                              ~(x & y), expect)
+            ref = nand["out"][mode]
+            same = torch.equal(out.a, ref.a) and torch.equal(out.b, ref.b)
+            print("%s: NAND vs the original key's NAND on %d inputs: %s"
+                  % (label, len(x), "bit-equal" if same else "DIFFERENT"))
+            if not same:
+                raise AssertionError("%s differs from the original key" % label)
+    data = cx.dumps()
+    back = nft.LweSampleArray.loads(data, dev)
+    if not (back.device == cx.device and back == cx):
+        raise AssertionError("the ciphertext round trip differs")
+    again = nft.NuFHESecretKey.loads(secret.dumps())
+    if not (again == secret and np.array_equal(nft.decrypt(again, back), x)):
+        raise AssertionError("the secret key round trip decrypts otherwise")
+    print("ciphertext container (%d inputs): %d bytes, loads onto %s equal; "
+          "secret key round trip decrypts the same" % (len(x), len(data), dev))
+
+
+def kogge_stone_calls(width, keep_last_p):
+    """Bootstrapped gate calls of ``models/integer._kogge_stone``: a MUX a
+    level, and an AND unless it is the last level (or ``keep_last_p``)."""
+    calls, d = 0, 1
+    while d < width:
+        calls += 1 + int(keep_last_p or 2 * d < width)
+        d *= 2
+    return calls
+
+
+def gate_launches(calls):
+    """K3 and K2 launches of ``calls`` bootstrapped gate calls on the
+    default path (a MUX is one rotation too)."""
+    return dict.fromkeys(KERNEL_NAMES, 0) | dict(
+        blind_rotate_chunk=N_LWE // CHUNK * calls, keyswitch=calls)
+
+
+def uint_bits(nft, values, width):
+    return nft.uintarray_to_bitarray(np.asarray(values, np.uint64), width)
+
+
+def int_bits(nft, values, width):
+    return nft.intarray_to_bitarray(np.asarray(values, np.int64), width)
+
+
+def run_circuit(nft, label, secret, vm, name, args, want, expect=None, **kw):
+    """One integer circuit through ``vm`` with the launch counts set to 0
+    just before it and read just after; every output bit must decrypt to
+    ``want`` (a tuple for ``uint_divmod``) with its phase inside the
+    margin, and the counts must be ``expect`` where it is given."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    out = getattr(vm, name)(*args, **kw)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    counts = read_counts()
+    outs = out if isinstance(out, tuple) else (out,)
+    wants = want if isinstance(out, tuple) else (want,)
+    frac = 0.0
+    for o, w in zip(outs, wants):
+        got = nft.decrypt(secret, o)
+        if got.shape != w.shape or not np.array_equal(got, w):
+            raise AssertionError("%s decrypts wrong" % label)
+        frac = max(frac, phase_error_frac(nft, secret, o, w))
+    print("%s: %s in %.3f s (first call), launches %s; decrypts to numpy's "
+          "answer on every integer, largest phase error %.6f of the 1/16 "
+          "margin" % (label, name, elapsed, json.dumps(counts), frac))
+    if not frac < 1:
+        raise AssertionError("%s: phase error beyond the margin" % label)
+    if expect is not None and counts != expect:
+        raise AssertionError("%s: expected launches %s" % (label, expect))
+    return elapsed
+
+
+def integer_circuits(nft, dev, rng, secret, vms):
+    """The integer circuits at the default parameters through
+    ``VirtualMachine.uint_*``/``int_*`` on the default path ('NTT'; the
+    last ``uint_min`` in 'FFT'); the 16-bit additions and subtractions
+    with the K3 and K2 launches their circuits imply."""
+    vm, vm_fft = vms["default NTT"], vms["default FFT"]
+    crng = nft.DeterministicRNG(SEED + 3)
+
+    def enc(bits):
+        return nft.encrypt(crng, secret, bits, device=dev)
+
+    def uints(batch, width, shape=None):
+        v = rng.randint(0, 2**width, shape or batch).astype(np.int64)
+        return v, enc(uint_bits(nft, v, width))
+
+    w, big, small = 16, MAIN_BATCH, INT_BATCH
+    ripple = gate_launches(3 * w)
+    a, ca = uints(big, w)
+    b, cb = uints(big, w)
+    run_circuit(nft, "uint_add 16-bit ripple, %d integers" % big, secret, vm,
+                "uint_add", (ca, cb), uint_bits(nft, (a + b) % 2**w, w),
+                ripple, parallel=False)
+    run_circuit(nft, "uint_lt 16-bit, %d integers" % big, secret, vm,
+                "uint_lt", (ca, cb), (a < b)[:, None])
+    run_circuit(nft, "uint_eq 16-bit, %d integers" % big, secret, vm,
+                "uint_eq", (ca, cb), (a == b)[:, None])
+    run_circuit(nft, "uint_min 16-bit, %d integers" % big, secret, vm,
+                "uint_min", (ca, cb), uint_bits(nft, np.minimum(a, b), w))
+    r, cr = uints(1, w, (1,))
+    run_circuit(nft, "uint_add 16-bit, %d integers + one broadcast (1, 16)"
+                % big, secret, vm, "uint_add", (ca, cr),
+                uint_bits(nft, (a + r) % 2**w, w), ripple)
+
+    a, ca = uints(small, w)
+    b, cb = uints(small, w)
+    run_circuit(nft, "uint_add 16-bit Kogge-Stone, %d integers" % small,
+                secret, vm, "uint_add", (ca, cb),
+                uint_bits(nft, (a + b) % 2**w, w),
+                gate_launches(3 + kogge_stone_calls(w, False)), parallel=True)
+    for form, parallel, calls in (
+            ("ripple", False, 3 * w),
+            ("Kogge-Stone", True, 4 + kogge_stone_calls(w, True))):
+        run_circuit(nft, "uint_sub 16-bit %s, %d integers" % (form, small),
+                    secret, vm, "uint_sub", (ca, cb),
+                    uint_bits(nft, (a - b) % 2**w, w), gate_launches(calls),
+                    parallel=parallel)
+    run_circuit(nft, "uint_min 16-bit 'FFT', %d integers" % small, secret,
+                vm_fft, "uint_min", (ca, cb),
+                uint_bits(nft, np.minimum(a, b), w))
+    a8, ca8 = uints(small, 8)
+    b8, cb8 = uints(small, 8)
+    run_circuit(nft, "uint_mul 8-bit ripple, %d integers" % small, secret, vm,
+                "uint_mul", (ca8, cb8), uint_bits(nft, a8 * b8 % 2**8, 8),
+                parallel=False)
+
+    sa = rng.randint(-2**15, 2**15, small).astype(np.int64)
+    sb = rng.randint(-2**15, 2**15, small).astype(np.int64)
+    csa, csb = enc(int_bits(nft, sa, w)), enc(int_bits(nft, sb, w))
+    run_circuit(nft, "int_add 16-bit, %d integers" % small, secret, vm,
+                "int_add", (csa, csb), int_bits(nft, sa + sb, w), ripple)
+    run_circuit(nft, "int_gt 16-bit, %d integers" % small, secret, vm,
+                "int_gt", (csa, csb), (sa > sb)[:, None])
+    run_circuit(nft, "int_neg 16-bit, %d integers" % small, secret, vm,
+                "int_neg", (csa,), int_bits(nft, -sa, w))
+
+    n_div = DIV_BATCH
+    a, ca = uints(n_div, 8)
+    b = rng.randint(0, 2**8, n_div).astype(np.int64)
+    b[::8] = 0                    # quotient 2^8 - 1, remainder a
+    cb = enc(uint_bits(nft, b, 8))
+    nz = np.maximum(b, 1)
+    q = np.where(b == 0, 2**8 - 1, a // nz)
+    rem = np.where(b == 0, a, a % nz)
+    run_circuit(nft, "uint_divmod 8-bit, %d integers (%d divisors 0)"
+                % (n_div, int((b == 0).sum())), secret, vm, "uint_divmod",
+                (ca, cb), (uint_bits(nft, q, 8), uint_bits(nft, rem, 8)))
+
+
+def adder_crossover(nft, dev, rng, secret, vm, smi):
+    """``uint_add`` in both forms over a grid of batch and width on the
+    default path: one synchronised host-clock time each, after a first
+    call at that shape that is checked against numpy."""
+    crng = nft.DeterministicRNG(SEED + 4)
+    grid = []
+    for width in CROSSOVER_WIDTHS:
+        for batch in CROSSOVER_BATCHES:
+            a, b = (rng.randint(0, 2**width, batch) for _ in range(2))
+            ca, cb = (nft.encrypt(crng, secret, uint_bits(nft, v, width),
+                                  device=dev) for v in (a, b))
+            want = uint_bits(nft, (a + b) % 2**width, width)
+            row = dict(batch=batch, width=width)
+            for form, parallel in (("ripple", False), ("kogge_stone", True)):
+                out = vm.uint_add(ca, cb, parallel=parallel)
+                if not np.array_equal(nft.decrypt(secret, out), want):
+                    raise AssertionError("uint_add %s %d x %d decrypts wrong"
+                                         % (form, batch, width))
+                torch.cuda.synchronize()
+                t0 = time.time()
+                vm.uint_add(ca, cb, parallel=parallel)
+                torch.cuda.synchronize()
+                row[form + "_ms"] = (time.time() - t0) * 1e3
+            row["winner"] = min(("ripple", "kogge_stone"),
+                                key=lambda f: row[f + "_ms"])
+            grid.append(row)
+    print(json.dumps({"adder_crossover": grid, "card": smi,
+                      "path": "default NTT, n=500, N=1024"}))
 
 
 def variant_gates(nft, dev, rng):
@@ -791,8 +1031,14 @@ def main():
     }
     check_kernels(nft, dev, rng, results)
 
-    launches, secret, cloud, cloud_fft, vms = gate_paths(nft, dev, rng)
+    launches, secret, cloud, cloud_fft, vms, nand = gate_paths(nft, dev, rng)
     variant_gates(nft, dev, rng)
+    t0 = time.time()
+    containers_on_card(nft, dev, secret, cloud, cloud_fft, nand)
+    integer_circuits(nft, dev, rng, secret, vms)
+    adder_crossover(nft, dev, rng, secret, vms["default NTT"], smi)
+    print("containers, integer circuits and crossover: %.1f s"
+          % (time.time() - t0))
     for name, n in launches.items():
         if not n:
             raise AssertionError("kernel %s was not launched on its path" % name)

@@ -1,9 +1,15 @@
-"""Key objects and host key generation (``nufhe_tpu/keys.py``'s host path).
+"""Key objects, host key generation and key containers
+(``nufhe_tpu/keys.py``'s host path).
 
 Keys are generated on the host with the numpy oracles, in the reference's
 RNG call order, so one ``DeterministicRNG`` seed gives the same keys here
 and in ``nufhe_tpu``.  ``device(dev)`` prepares each key for the kernels.
+``dump``/``load`` write and read the JAX package's containers byte for
+byte (``serialization.py``): a key written by either package loads in the
+other.
 """
+
+import io
 
 import numpy as np
 import torch
@@ -14,6 +20,13 @@ from .rng import rand_uniform_bool, rand_uniform_torus32, rand_gaussian_torus32
 from .ref import tlwe_ref, tgsw_ref, lwe_ref
 from .ops import lwe as dlwe
 from .ops import tgsw, transform
+from . import serialization
+
+
+def _check_kind(meta, kind):
+    if meta.get("kind") != kind:
+        raise ValueError("expected a %s container, got %r"
+                         % (kind, meta.get("kind")))
 
 
 class LweKey:
@@ -34,6 +47,27 @@ class LweKey:
         if params.size != poly_degree * mask_size:
             raise ValueError("LWE size %d != N * mask_size" % params.size)
         return cls(params, tlwe_key.key.ravel())
+
+    def dump(self, file_obj):
+        serialization.dump(
+            file_obj,
+            {"kind": "LweKey",
+             "params": [self.params.size, self.params.min_noise,
+                        self.params.max_noise]},
+            {"key": self.key})
+
+    @classmethod
+    def load(cls, file_obj):
+        meta, arrays = serialization.load(file_obj)
+        _check_kind(meta, "LweKey")
+        size, min_noise, max_noise = meta["params"]
+        return cls(LweParams(int(size), float(min_noise), float(max_noise)),
+                   arrays["key"])
+
+    def __eq__(self, other):
+        return (self.__class__ == other.__class__
+                and self.params == other.params
+                and np.array_equal(self.key, other.key))
 
 
 class TLweKey:
@@ -63,17 +97,27 @@ class TGswKey:
 
 
 class BootstrapKey:
-    """n TGSW encryptions of the LWE key bits, in the coefficient domain
-    (``bk_coeff``: (n, mask_size+1, decomp_length, mask_size+1, N) int32).
-    Reference: ``nufhe/bootstrap.py:44-92``."""
+    """n TGSW encryptions of the LWE key bits.  Reference:
+    ``nufhe/bootstrap.py:44-92``.
+
+    Holds the coefficient-domain samples (``bk_coeff``: (n, mask_size+1,
+    decomp_length, mask_size+1, N) int32) after keygen or a format-1
+    container, or else only the transformed two-sided int8 limbs
+    (``limbs()``: (n, G, O, L, R, KL, 2)) that formats 2-4 carry, which is
+    all either engine needs.  Format 4 (what ``dump`` writes) stores the +v
+    side and, for the rounded form, one bit a residue (``compact()``).
+    """
 
     def __init__(self, in_out_params: LweParams, bk_params: TGswParams,
-                 bk_coeff, cv):
+                 bk_coeff, cv, limbs=None, compact=None):
         self.in_out_params = in_out_params
         self.bk_params = bk_params
         self.accum_params = bk_params.tlwe_params
-        self.bk_coeff = np.asarray(bk_coeff, Torus32)
+        self.bk_coeff = None if bk_coeff is None else np.asarray(bk_coeff,
+                                                                  Torus32)
         self.cv = np.asarray(cv, ErrorFloat)
+        self._limbs = limbs
+        self._compact = compact      # (pos_limbs, delta): the one-sided form
         self._device = {}
         self._mac_rhs = {}
         self._mac_rhs_host = None
@@ -98,29 +142,55 @@ class BootstrapKey:
         a = tgsw_ref.tgsw_add_message(a, lwe_key.key, bk_params)
         return cls(lwe_key.params, bk_params, a.astype(Torus32), cv)
 
+    def limbs(self):
+        """The two-sided limb form (cached): 5 limbs (exact) for 'NTT'
+        parameters, 4 (rounded) for 'FFT'.  A container of the other form
+        keeps its own: the limb count selects the engine's form, as in the
+        JAX package."""
+        if self._limbs is None:
+            if self._compact is not None:
+                self._limbs = transform.two_sided_limbs_host(*self._compact)
+            else:
+                self._limbs = tgsw.bootstrap_key_limbs_host(
+                    self.bk_coeff,
+                    exact=self.accum_params.transform_type != 'FFT')
+        return self._limbs
+
+    def compact(self):
+        """The one-sided form ``(pos_limbs, delta)`` that format 4 stores
+        (``ops/transform.one_sided_limbs_host``)."""
+        if self._compact is None:
+            self._compact = transform.one_sided_limbs_host(self.limbs())
+        return self._compact
+
     def device(self, dev):
-        """The transformed key on ``dev`` (cached), in the form that
-        ``transform_type`` selects: (n, G, O, L, R) int64 for 'NTT', the
-        two-sided (n, 2, G, O, L, R) for 'FFT'."""
+        """The rows engine's key on ``dev`` (cached): (n, G, O, L, R) int64
+        for the exact form, the two-sided (n, 2, G, O, L, R) for the
+        rounded one.  From ``bk_coeff`` the form is ``transform_type``'s;
+        from limbs alone it is the limbs' (``ops/transform.
+        rows_key_from_limbs``, equal to the transform of the same key)."""
         dev = torch.device(dev)
         if dev not in self._device:
-            self._device[dev] = transform.bootstrap_key_transformed(
-                self.bk_coeff, dev, self.accum_params.transform_type)
+            if self.bk_coeff is not None:
+                key = transform.bootstrap_key_transformed(
+                    self.bk_coeff, dev, self.accum_params.transform_type)
+            else:
+                key = transform.rows_key_from_limbs(self.limbs(), dev)
+            self._device[dev] = key
         return self._device[dev]
 
     def mac_rhs(self, dev):
         """The lanes engine's key on ``dev`` (cached): the TPU's MAC
-        operand, (n, L, C, Q) int8 (``ops/tgsw.prepare_bootstrap_key_device``),
-        exact (Q = 5*O*R) for 'NTT' and rounded (Q = 4*O*R) for 'FFT'.  A
+        operand, (n, L, C, Q) int8 (``ops/tgsw.expand_bootstrap_key_device``
+        of :meth:`limbs`), exact (Q = 5*O*R) or rounded (Q = 4*O*R).  A
         prepared array given to :meth:`set_mac_rhs` is uploaded as it is."""
         dev = torch.device(dev)
         if dev not in self._mac_rhs:
             if self._mac_rhs_host is not None:
                 key = torch.from_numpy(self._mac_rhs_host).to(dev)
             else:
-                key = tgsw.prepare_bootstrap_key_device(
-                    self.bk_coeff, dev,
-                    exact=self.accum_params.transform_type != 'FFT')
+                key = tgsw.expand_bootstrap_key_device(self.limbs(), dev,
+                                                       chunk=50)
             self._mac_rhs[dev] = key
         return self._mac_rhs[dev]
 
@@ -131,7 +201,7 @@ class BootstrapKey:
         mac_rhs = np.array(mac_rhs)     # an own, writable copy
         mask1 = self.accum_params.mask_size + 1
         groups = 4 if self.accum_params.transform_type == 'FFT' else 5
-        want = (self.bk_coeff.shape[0], transform.L,
+        want = (self.in_out_params.size, transform.L,
                 mask1 * self.bk_params.decomp_length * 2 * transform.R,
                 groups * mask1 * transform.R)
         if mac_rhs.dtype != np.int8 or mac_rhs.shape != want:
@@ -140,6 +210,46 @@ class BootstrapKey:
                                 mac_rhs.dtype, mac_rhs.shape))
         self._mac_rhs_host = mac_rhs
         self._mac_rhs = {}
+
+    def dump(self, file_obj):
+        """Format 4: the +v limbs, the variances and, rounded form only,
+        the packed delta bits."""
+        pos, delta = self.compact()
+        arrays = {"limbs_pos": pos, "cv": self.cv}
+        if delta is not None:
+            arrays["delta_bits"] = np.packbits(delta.reshape(-1))
+        serialization.dump(
+            file_obj, {"kind": "BootstrapKey", "format": 4}, arrays)
+
+    @classmethod
+    def load(cls, file_obj, in_out_params, bk_params):
+        """Formats 1 (coefficient domain), 2 (radix-2^8 limbs), 3 (A/B
+        limbs, both sides) and 4 (one-sided)."""
+        meta, arrays = serialization.load(file_obj)
+        _check_kind(meta, "BootstrapKey")
+        if "limbs_pos" in arrays:        # format 4
+            pos = arrays["limbs_pos"]
+            delta = None
+            if "delta_bits" in arrays:
+                delta = np.unpackbits(
+                    arrays["delta_bits"],
+                    count=int(np.prod(pos.shape[:-1]))).reshape(pos.shape[:-1])
+            return cls(in_out_params, bk_params, None, arrays["cv"],
+                       compact=(pos, delta))
+        if "limbs" in arrays:            # formats 2 and 3
+            limbs = arrays["limbs"]
+            if meta.get("format", 2) < 3:
+                limbs = transform.relimb_from_radix8(limbs)
+            return cls(in_out_params, bk_params, None, arrays["cv"],
+                       limbs=limbs)
+        return cls(in_out_params, bk_params, arrays["bk_coeff"], arrays["cv"])
+
+    def __eq__(self, other):
+        # the limb form is what both engines run on
+        return (self.__class__ == other.__class__
+                and self.in_out_params == other.in_out_params
+                and self.bk_params == other.bk_params
+                and np.array_equal(self.limbs(), other.limbs()))
 
 
 class LweKeyswitchKey:
@@ -190,6 +300,57 @@ class LweKeyswitchKey:
                 self.ks_a, self.ks_b, self.ks_cv, self.log2_base, dev)
         return self._device[dev]
 
+    def dump(self, file_obj):
+        """Format 2: without the digit-0 slices, which keygen makes trivial
+        zero encryptions (the reference zeroes them too,
+        ``lwe_gpu.mako:18-56``).  A key whose slice 0 is not zero raises
+        rather than change in a dump/load round trip."""
+        if np.any(self.ks_a[:, :, 0]) or np.any(self.ks_b[:, :, 0]):
+            raise ValueError(
+                "keyswitch key digit-0 slice is not the trivial zero "
+                "encryption; refusing the lossy format-2 dump")
+        serialization.dump(
+            file_obj,
+            {"kind": "LweKeyswitchKey", "log2_base": self.log2_base,
+             "format": 2},
+            {"ks_a_nz": self.ks_a[:, :, 1:],
+             "ks_b_nz": self.ks_b[:, :, 1:],
+             "ks_cv_nz": self.ks_cv[:, :, 1:]})
+
+    @classmethod
+    def load(cls, file_obj):
+        """Formats 1 (whole tables) and 2 (without digit 0)."""
+        meta, arrays = serialization.load(file_obj)
+        _check_kind(meta, "LweKeyswitchKey")
+        log2_base = int(meta["log2_base"])
+        if meta.get("format", 1) >= 2:
+            pad = [(0, 0), (0, 0), (1, 0)]
+            return cls(np.pad(arrays["ks_a_nz"], pad + [(0, 0)]),
+                       np.pad(arrays["ks_b_nz"], pad),
+                       np.pad(arrays["ks_cv_nz"], pad), log2_base)
+        return cls(arrays["ks_a"], arrays["ks_b"], arrays["ks_cv"], log2_base)
+
+    def __eq__(self, other):
+        return (self.__class__ == other.__class__
+                and np.array_equal(self.ks_a, other.ks_a)
+                and np.array_equal(self.ks_b, other.ks_b))
+
+
+def _params_meta(params: NuFHEParameters):
+    return list(params._key)
+
+
+def _params_from_meta(meta):
+    (transform_type, tlwe_mask_size, tlwe_polynomial_degree, lwe_size,
+     bs_decomp_length, bs_log2_base, ks_decomp_length, ks_log2_base) = meta
+    return NuFHEParameters(
+        transform_type=transform_type, tlwe_mask_size=int(tlwe_mask_size),
+        tlwe_polynomial_degree=int(tlwe_polynomial_degree),
+        lwe_size=int(lwe_size), bs_decomp_length=int(bs_decomp_length),
+        bs_log2_base=int(bs_log2_base),
+        ks_decomp_length=int(ks_decomp_length),
+        ks_log2_base=int(ks_log2_base))
+
 
 class NuFHESecretKey:
     """Reference: ``nufhe/api_low_level.py:90-154``."""
@@ -201,6 +362,32 @@ class NuFHESecretKey:
     @classmethod
     def from_rng(cls, params: NuFHEParameters, rng):
         return cls(params, LweKey.from_rng(params.in_out_params, rng))
+
+    def dump(self, file_obj):
+        serialization.dump(
+            file_obj, {"kind": "NuFHESecretKey",
+                       "params": _params_meta(self.params)}, {})
+        self.lwe_key.dump(file_obj)
+
+    def dumps(self):
+        buf = io.BytesIO()
+        self.dump(buf)
+        return buf.getvalue()
+
+    @classmethod
+    def load(cls, file_obj):
+        meta, _ = serialization.load(file_obj)
+        _check_kind(meta, "NuFHESecretKey")
+        return cls(_params_from_meta(meta["params"]), LweKey.load(file_obj))
+
+    @classmethod
+    def loads(cls, s: bytes):
+        return cls.load(io.BytesIO(s))
+
+    def __eq__(self, other):
+        return (self.__class__ == other.__class__
+                and self.params == other.params
+                and self.lwe_key == other.lwe_key)
 
 
 class NuFHECloudKey:
@@ -220,6 +407,40 @@ class NuFHECloudKey:
             rng, params.ks_decomp_length, params.ks_log2_base,
             secret_key.lwe_key, tgsw_key)
         return cls(params, bk, ks)
+
+    def dump(self, file_obj):
+        serialization.dump(
+            file_obj, {"kind": "NuFHECloudKey",
+                       "params": _params_meta(self.params)}, {})
+        self.bootstrap_key.dump(file_obj)
+        self.keyswitch_key.dump(file_obj)
+
+    def dumps(self):
+        buf = io.BytesIO()
+        self.dump(buf)
+        return buf.getvalue()
+
+    @classmethod
+    def load(cls, file_obj):
+        """A cloud key from its container.  From formats 2-4 its bootstrap
+        key holds limbs only; both engines' keys are prepared from them on
+        first use on a device."""
+        meta, _ = serialization.load(file_obj)
+        _check_kind(meta, "NuFHECloudKey")
+        params = _params_from_meta(meta["params"])
+        bk = BootstrapKey.load(file_obj, params.in_out_params,
+                               params.tgsw_params)
+        return cls(params, bk, LweKeyswitchKey.load(file_obj))
+
+    @classmethod
+    def loads(cls, s: bytes):
+        return cls.load(io.BytesIO(s))
+
+    def __eq__(self, other):
+        return (self.__class__ == other.__class__
+                and self.params == other.params
+                and self.bootstrap_key == other.bootstrap_key
+                and self.keyswitch_key == other.keyswitch_key)
 
 
 def make_key_pair(rng, **params):

@@ -211,6 +211,55 @@ def one_sided_limbs_host(limbs):
     return pos, delta64.astype(np.uint8)
 
 
+def relimb_from_radix8(old):
+    """Format-2 key containers' plain balanced radix-2^8 two-sided limbs ->
+    the current A/B form (``nufhe_tpu/ops/transform.py:177-191``).  The
+    5-digit balanced split gives back the centred mod-2^38 value exactly
+    (|v| < 2^37), so the re-split loses nothing.
+
+    :param old: int8 (..., KEY_LIMBS, 2) in the old format.
+    :returns: int8 (..., KEY_LIMBS, 2) in the A/B format.
+    """
+    old = np.asarray(old)
+    v = np.zeros(old.shape[:-2] + (2,), np.int64)
+    for j in reversed(range(KEY_LIMBS)):
+        v = (v << KEY_LIMB_BITS) + old[..., j, :].astype(np.int64)
+    return np.stack(
+        [_limb_split_38(v[..., 0]), _limb_split_38(v[..., 1])], axis=-1)
+
+
+def rows_key_from_limbs(limbs, device):
+    """Two-sided key limbs -> the rows engine's key, equal to
+    :func:`bootstrap_key_transformed` of the coefficient key they came from.
+    The limb count selects the form, as it does for the lanes key.
+
+    Exact form (5 limbs): side 0 holds vlo and 4 digits of vhi mod 2^32,
+    and v = vlo + 64 * vhi mod 2^38 is the residue itself.  Rounded form
+    (4 limbs): side s holds q = round(+-v/64) mod 2^32, and 64 * q mod
+    2^38 is the port's rounded side s (the 64 * 2^32 = 2^38 wrap is
+    harmless).  Both are then centred as :func:`centred_residues` does.
+
+    :param limbs: (n, G, O, L, R, KL, 2) int8 numpy array (L in natural
+        frequency order, as ``ops/tgsw.bootstrap_key_limbs_host`` gives).
+    :returns: (n, G, O, L, R) int64 tensor on ``device`` (5 limbs), or
+        (n, 2, G, O, L, R) (4 limbs).
+    """
+    limbs = np.asarray(limbs)
+    kl = limbs.shape[-2]
+    if kl not in (KEY_LIMBS, KEY_LIMBS_APPROX) or limbs.shape[-1] != 2:
+        raise ValueError("limbs must end in (%d or %d, 2), got %s"
+                         % (KEY_LIMBS, KEY_LIMBS_APPROX, limbs.shape))
+    digs = limbs.astype(np.int64)
+    if kl == KEY_LIMBS:
+        digs = digs[..., 0]                       # the +v side
+        hi = (digs[..., 1:] << (np.arange(4) * KEY_LIMB_BITS)).sum(-1)
+        key = centred_residues((digs[..., 0] + (hi << 6)).astype(np.uint64))
+    else:
+        q = (digs << (np.arange(4) * KEY_LIMB_BITS)[:, None]).sum(-2)
+        key = np.moveaxis(centred_residues((q << 6).astype(np.uint64)), -1, 1)
+    return torch.from_numpy(np.ascontiguousarray(key)).to(device)
+
+
 def _neg_side_digits(whi, n_digs):
     """Balanced radix-2^8 digits of ``whi`` (int64, mod 2^32 semantics)."""
     digs = []
