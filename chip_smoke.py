@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
-1. the card's name and power limit (``nvidia-smi``);
+1. the card's name and power limit (``nvidia-smi``) and the versions of
+   Python, PyTorch and CUDA;
 2. build every kernel from ``nufhe_tpu_torch/kernels/csrc`` (one ``nvcc``
    per source, all at once) and print ``ptxas``'s register/spill lines;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
@@ -23,9 +24,20 @@ and prints no result line):
    non-default (mask1, l) = (3, 2) and (2, 3), both key forms, at batch 64
    and 101, each against its plain version, K3 against its chunk of K1
    launches and K4's steps against as many K1 launches;
-4. the gate paths at the default parameters (n=500, N=1024), on 4096
-   random inputs, through the entry points, each with the launch counts set
-   to 0 just before the gate and read just after:
+4. keygen at the default parameters (n=500, N=1024): ``make_key_pair``
+   with its default placement, on the card, and with ``on_device=False``,
+   on the host, from one seed, each synchronised, the card's split by a
+   step-by-step replay into host RNG draws, upload and work on the card;
+   the tables (``bk_coeff``, ``ks_a``, ``ks_b``), the compact form and the
+   containers equal bit for bit; then, in both engines ('FFT' keys built
+   from each keygen's arrays), each key prepared on the card (the card-made
+   key's transform and limb split there; the host-made key's in numpy) and
+   timed part by part: the rows key, the keyswitch ``ab_limbs`` and the
+   lanes key of the card-made key equal the host path's, and its
+   ``ab_limbs`` the numpy packing's;
+5. the gate paths at the default parameters, from the card-made keys, on
+   4096 random inputs, through the entry points, each with the launch
+   counts set to 0 just before the gate and read just after:
    - the default path, ``VirtualMachine(cloud)`` with no performance
      parameters: NAND through 10 K3 launches of 50 steps and 1 K2;
    - the same NAND with the rounded-key ('FFT') engine, its cloud key built
@@ -40,18 +52,22 @@ and prints no result line):
    the two NANDs of the default path and of the lanes path also equal the
    same gate run on the CPU through the plain versions on 8 of the inputs,
    bit for bit;
-   then NAND at each of the JAX package's one-knob variants
-   (``tlwe_mask_size=2``, ``bs_decomp_length=3``, ``ks_log2_base=3``), in
+   the host-made keys' NAND on the default and the lanes path, both
+   engines, equals the card-made keys' bit for bit; then NAND at each of
+   the JAX package's one-knob variants (``tlwe_mask_size=2``,
+   ``bs_decomp_length=3``, ``ks_log2_base=3``), keys made on the card, in
    both engines, on the default path (2 K3 + 1 K2) and the lanes path (100
-   K4 + 1 K2) at ``lwe_size=100`` (to keep host keygen and the run short),
-   each checked the same way;
-5. containers: each cloud key (both engines) through ``dumps()`` and
-   ``NuFHECloudKey.loads`` (format 4: limbs only), with its bytes and its
-   seconds of load and key preparation on the card; the loaded key's NAND
-   on the 4096 inputs equals the original key's bit for bit on the
-   default path (10 K3 + 1 K2) and the lanes path (500 K4 + 1 K2); the
-   ciphertext and secret-key round trips;
-6. the integer circuits at the default parameters through
+   K4 + 1 K2) at ``lwe_size=100`` (to keep the run short), each checked
+   the same way;
+6. containers: each cloud key (both engines) through ``dumps()`` and
+   ``NuFHECloudKey.loads`` (format 4: the one-sided limbs only), with its
+   bytes and its seconds of load and of each part of the key preparation
+   on the card (the -v side, the rows key and the lanes key derived there;
+   each equal to the host path's); the loaded key's NAND on the 4096
+   inputs equals the original key's bit for bit on the default path (10
+   K3 + 1 K2) and the lanes path (500 K4 + 1 K2); the ciphertext and
+   secret-key round trips;
+7. the integer circuits at the default parameters through
    ``VirtualMachine.uint_*``/``int_*`` on the default path: 16-bit
    ``uint_add`` (4096 integers ripple, 1024 Kogge-Stone, 4096 against a
    broadcast (1, 16) operand), ``uint_sub`` (1024, both forms),
@@ -62,15 +78,15 @@ and prints no result line):
    error inside the margin, and each 16-bit addition and subtraction has
    the K3 and K2 launches its circuit implies (10 K3 + 1 K2 a
    bootstrapped call: 3w calls ripple, ``kogge_stone_calls`` more);
-7. the ripple / Kogge-Stone crossover: ``uint_add`` at batch {1, 16, 128,
+8. the ripple / Kogge-Stone crossover: ``uint_add`` at batch {1, 16, 128,
    1024} x width {8, 16}, one synchronised host-clock time a form after a
    checked first call, printed as one ``adder_crossover`` JSON line;
-8. timing at batch 2^14: warm ms/bit of the NAND in both engines on the
+9. timing at batch 2^14: warm ms/bit of the NAND in both engines on the
    default path, the per-step path and the lanes path, and of MUX; each
    kernel's ms per launch beside its plain version (whose output it
    equals there too), a PyTorch library call where one computes the same
    function, and its bound; K4's three grids timed apart;
-9. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
+10. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The bound of a kernel is the larger of its bytes (each input read once,
@@ -110,7 +126,7 @@ KERNEL_NAMES = ("cmux_step", "keyswitch", "blind_rotate_chunk",
 VARIANT_SHAPES = ((3, 2), (2, 3))
 # the gates at the JAX package's one-knob variant parameters run at this
 # LWE size, which the default chunk of 50 divides (so the default path runs
-# K3), to keep host keygen and the run short
+# K3), to keep the run short
 VARIANT_LWE = 100
 VARIANTS = (dict(tlwe_mask_size=2), dict(bs_decomp_length=3),
             dict(ks_log2_base=3))
@@ -420,7 +436,8 @@ def same_on_cpu(nft, label, cloud, gate, args, out, perf=None):
 
 
 def fft_cloud(nft, cloud, **params):
-    """The rounded-key ('FFT') cloud key from the same keygen arrays."""
+    """The rounded-key ('FFT') cloud key from the same keygen arrays (the
+    card's tensors for a card-made key, numpy for a host-made one)."""
     bk, ks = cloud.bootstrap_key, cloud.keyswitch_key
     return nft.cloud_key_from_arrays(
         nft.NuFHEParameters(transform_type='FFT', **params),
@@ -437,24 +454,190 @@ def cpu_lanes_cloud(nft, cloud, dev):
         ks.log2_base, mac_rhs=bk.mac_rhs(dev).cpu().numpy())
 
 
-def gate_paths(nft, dev, rng):
-    """The gate paths at batch 4096; returns each kernel's launches and the
-    keys and machines for the timing phase."""
+def synced(fn):
+    """``fn()`` and its seconds, the card synchronised before and after."""
+    torch.cuda.synchronize()
     t0 = time.time()
-    secret, cloud = nft.make_key_pair(nft.DeterministicRNG(SEED), lwe_size=N_LWE)
-    cloud_fft = fft_cloud(nft, cloud, lwe_size=N_LWE)
-    print("keygen (host, n=%d, N=1024): %.1f s" % (N_LWE, time.time() - t0))
-    for c in (cloud, cloud_fft):
-        t0 = time.time()
-        c.bootstrap_key.device(dev)
-        c.keyswitch_key.device(dev)
-        torch.cuda.synchronize()
-        t1 = time.time()
-        c.bootstrap_key.mac_rhs(dev)
-        torch.cuda.synchronize()
-        print("key preparation (%s: transform + upload): %.1f s; lanes key "
-              "(host limbs + expansion on the card): %.1f s"
-              % (c.params.transform_type, t1 - t0, time.time() - t1))
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def card_keygen_phases(nft, dev, params):
+    """The card keygen of ``make_key_pair(DeterministicRNG(SEED))`` replayed
+    step by step through ``ops/keygen``, each step synchronised: the host
+    RNG draws in the reference's order, the key matrix built on the host,
+    the one upload of each array, then the work on the card.  Returns
+    ``(seconds by phase, bk_coeff, ks_a, ks_b)``."""
+    from nufhe_tpu_torch import rng as nrng
+    from nufhe_tpu_torch.ops import keygen
+    tp = params.tgsw_params
+    mask_size = tp.tlwe_params.mask_size
+    n = params.in_out_params.size
+    base = 2 ** params.ks_log2_base
+    in_size = mask_size * 1024
+    rng = nft.DeterministicRNG(SEED)
+    shape = (n, mask_size + 1, tp.decomp_length)
+    t0 = time.time()
+    lwe_key = nrng.rand_uniform_bool(rng, (n,))
+    tlwe_key = nrng.rand_uniform_bool(rng, (mask_size, 1024))
+    noises1 = nrng.rand_uniform_torus32(rng, shape + (mask_size, 1024))
+    noises2 = nrng.rand_gaussian_torus32(rng, 0, tp.tlwe_params.min_noise,
+                                         shape + (1024,))
+    noises_b = nrng.rand_gaussian_torus32(
+        rng, 0, params.in_out_params.min_noise,
+        (in_size, params.ks_decomp_length, base - 1), centered=True)
+    noises_a = nrng.rand_uniform_torus32(
+        rng, (in_size, params.ks_decomp_length, base - 1, n))
+    t_rng = time.time() - t0
+    w, t_matrix = synced(lambda: keygen.negacyclic_key_matrix(tlwe_key))
+    host = (w, lwe_key, noises1, noises2, tlwe_key.reshape(-1), noises_a,
+            noises_b)
+    up, t_up = synced(lambda: [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                               for x in host])
+    (bk, (ks_a, ks_b)), t_dev = synced(lambda: (
+        keygen.bootstrap_key_device(up[0], up[1], up[2], up[3],
+                                    tp.base_powers),
+        keygen.make_keyswitch_key_device(up[4], up[1], up[5], up[6],
+                                         params.ks_decomp_length,
+                                         params.ks_log2_base)))
+    seconds = dict(rng=t_rng, key_matrix=t_matrix, upload=t_up, device=t_dev,
+                   upload_mb=sum(x.nbytes for x in host) / 1e6)
+    return seconds, bk, ks_a, ks_b
+
+
+def check_equal(label, got, want):
+    """Bit-for-bit equality of two tensors or arrays, printed; raises."""
+    if torch.is_tensor(got):
+        got = got.cpu().numpy()
+    if torch.is_tensor(want):
+        want = want.cpu().numpy()
+    same = got.shape == want.shape and np.array_equal(got, want)
+    print("%s: %s" % (label, "bit-equal" if same else "DIFFERENT"))
+    if not same:
+        raise AssertionError("%s differs" % label)
+
+
+def prepare_timed(key, dev):
+    """Both engines' keys and the keyswitch operand of ``key`` on ``dev``,
+    each synchronised: returns ({part: tensor}, {part: seconds}).  A card-
+    made key's transform and limb split (``compact()``) is timed apart."""
+    bk, ks = key.bootstrap_key, key.keyswitch_key
+    seconds = {}
+    if torch.is_tensor(bk.bk_coeff):
+        _, seconds["transform"] = synced(bk.compact)
+    out = {}
+    out["rows"], seconds["rows"] = synced(lambda: bk.device(dev))
+    out["ab_limbs"], seconds["ab_limbs"] = synced(
+        lambda: ks.device(dev)[0]["ab_limbs"])
+    out["lanes"], seconds["lanes"] = synced(lambda: bk.mac_rhs(dev))
+    return out, seconds
+
+
+def keygen_on_card(nft, dev):
+    """Keygen at n=500 on the card (the default) and on the host
+    (``on_device=False``) from one seed: the tables, the compact form and
+    the containers equal bit for bit, in both engines; both keys prepared on
+    the card (rows key, ``ab_limbs``, lanes key) equal.  Returns the card
+    keys and the host keys' prepared tensors."""
+    from nufhe_tpu_torch.ops import lwe as dlwe
+    (secret, cloud), t_card = synced(
+        lambda: nft.make_key_pair(nft.DeterministicRNG(SEED), lwe_size=N_LWE))
+    if not torch.is_tensor(cloud.bootstrap_key.bk_coeff) or \
+            cloud.bootstrap_key.bk_coeff.device != dev:
+        raise AssertionError("make_key_pair() did not generate on the card")
+    phases, bk, ks_a, ks_b = card_keygen_phases(nft, dev, cloud.params)
+    (h_secret, h_cloud), t_host = synced(lambda: nft.make_key_pair(
+        nft.DeterministicRNG(SEED), on_device=False, lwe_size=N_LWE))
+    print("keygen (n=%d, N=1024), synchronised: on the card %.3f s "
+          "(make_key_pair() with the default placement), on the host %.3f s "
+          "(on_device=False)" % (N_LWE, t_card, t_host))
+    print("card keygen by phase (a replay of the same steps): host RNG draws "
+          "%.3f s, key matrix on the host %.3f s, upload of %.1f MB %.3f s, "
+          "work on the card %.3f s" % (phases["rng"], phases["key_matrix"],
+                                       phases["upload_mb"], phases["upload"],
+                                       phases["device"]))
+    bkey, kkey = cloud.bootstrap_key, cloud.keyswitch_key
+    check_equal("replayed card keygen bk_coeff vs make_key_pair()", bk,
+                bkey.bk_coeff)
+    check_equal("replayed card keygen ks_a vs make_key_pair()", ks_a,
+                kkey.ks_a)
+    check_equal("replayed card keygen ks_b vs make_key_pair()", ks_b,
+                kkey.ks_b)
+    del bk, ks_a, ks_b
+    hb, hk = h_cloud.bootstrap_key, h_cloud.keyswitch_key
+    check_equal("card vs host keygen: bk_coeff", bkey.bk_coeff, hb.bk_coeff)
+    check_equal("card vs host keygen: ks_a", kkey.ks_a, hk.ks_a)
+    check_equal("card vs host keygen: ks_b", kkey.ks_b, hk.ks_b)
+    clouds = {"NTT": (cloud, h_cloud),
+              "FFT": (fft_cloud(nft, cloud, lwe_size=N_LWE),
+                      fft_cloud(nft, h_cloud, lwe_size=N_LWE))}
+    host_prepared = {}
+    for mode, (card_key, host_key) in clouds.items():
+        got, t_got = prepare_timed(card_key, dev)
+        want, t_want = prepare_timed(host_key, dev)
+        print("key preparation %s on the card from the card-made key: "
+              "transform and limb split %.3f s, rows key %.3f s, ab_limbs "
+              "%.3f s, lanes key %.3f s; from the host-made key (host "
+              "transform; tables uploaded and packed on the card; host limbs "
+              "+ expansion on the card): rows key %.3f s, ab_limbs %.3f s, "
+              "lanes key %.3f s"
+              % (mode, t_got["transform"], t_got["rows"], t_got["ab_limbs"],
+                 t_got["lanes"], t_want["rows"], t_want["ab_limbs"],
+                 t_want["lanes"]))
+        for part in ("rows", "ab_limbs", "lanes"):
+            check_equal("%s %s: card-made key vs host path" % (mode, part),
+                        got[part], want[part])
+        hk = host_key.keyswitch_key
+        oracle, _ = dlwe.prepare_keyswitch_device(hk.ks_a, hk.ks_b, hk.ks_cv,
+                                                  hk.log2_base, "cpu")
+        check_equal("%s ab_limbs: card-made key vs the numpy packing" % mode,
+                    got["ab_limbs"], oracle["ab_limbs"])
+        pos, delta = card_key.bootstrap_key.compact()
+        hpos, hdelta = host_key.bootstrap_key.compact()
+        if pos.device != dev:
+            raise AssertionError("the compact form did not stay on the card")
+        check_equal("%s compact pos: card vs host" % mode, pos, hpos)
+        if mode == "FFT":
+            check_equal("%s compact delta: card vs host" % mode, delta, hdelta)
+        if card_key.dumps() != host_key.dumps():
+            raise AssertionError("%s cloud key containers differ" % mode)
+        print("%s cloud key containers (dumps()): byte-equal" % mode)
+        host_prepared[mode] = (host_key, want)
+    if secret.dumps() != h_secret.dumps():
+        raise AssertionError("secret key containers differ")
+    return secret, cloud, clouds["FFT"][0], host_prepared
+
+
+def host_key_gates(nft, dev, secret, host_prepared, nand):
+    """The NAND of the host-made key on the default path (10 K3 + 1 K2) and
+    the lanes path (500 K4 + 1 K2), both modes, equals the card-made key's
+    bit for bit on the gate paths' 4096 inputs."""
+    none = dict.fromkeys(KERNEL_NAMES, 0)
+    lanes = nft.PerformanceParameters(single_kernel_bootstrap=False)
+    x, y, cx, cy = nand["x"], nand["y"], nand["cx"], nand["cy"]
+    for mode, (host_key, _) in host_prepared.items():
+        for path, perf, expect in (
+                ("default", None, dict(none, blind_rotate_chunk=N_LWE // CHUNK,
+                                       keyswitch=1)),
+                ("lanes", lanes, dict(none, lanes_step=N_LWE, keyswitch=1))):
+            label = "host-made %s key, %s path" % (mode, path)
+            out, _ = run_gate(nft, label, secret,
+                              nft.VirtualMachine(host_key, perf, device=dev),
+                              "gate_nand", (cx, cy), ~(x & y), expect)
+            ref = nand["out"][mode]
+            same = torch.equal(out.a, ref.a) and torch.equal(out.b, ref.b)
+            print("%s: NAND vs the card-made key's NAND on %d inputs: %s"
+                  % (label, len(x), "bit-equal" if same else "DIFFERENT"))
+            if not same:
+                raise AssertionError("%s differs from the card-made key"
+                                     % label)
+
+
+def gate_paths(nft, dev, rng, secret, cloud, cloud_fft):
+    """The gate paths at batch 4096 from the card-made keys; returns each
+    kernel's launches and the machines and NAND outputs for the later
+    phases."""
     lanes = nft.PerformanceParameters(single_kernel_bootstrap=False)
     vms = {
         "default NTT": nft.VirtualMachine(cloud, device=dev),
@@ -504,14 +687,17 @@ def gate_paths(nft, dev, rng):
     run_gate(nft, "lanes NTT", secret, vms["lanes NTT"], "gate_mux",
              (cx, cy, cz), np.where(x, y, z), lanes_counts)
     nand = dict(x=x, y=y, cx=cx, cy=cy, out=default_out)
-    return launches, secret, cloud, cloud_fft, vms, nand
+    return launches, vms, nand
 
 
-def containers_on_card(nft, dev, secret, cloud, cloud_fft, nand):
-    """The cloud key's container (format 4) in both modes, loaded and run
-    on the default path (10 K3 + 1 K2) and the lanes path (500 K4 + 1 K2):
-    the NAND on the gate paths' 4096 inputs equals the original key's bit
-    for bit.  Then the ciphertext and secret-key round trips."""
+def containers_on_card(nft, dev, secret, cloud, cloud_fft, nand,
+                       host_prepared):
+    """The cloud key's container (format 4) in both modes, loaded and
+    prepared on the card (rows key, ``ab_limbs``, lanes key, each equal to
+    the host path's), and run on the default path (10 K3 + 1 K2) and the
+    lanes path (500 K4 + 1 K2): the NAND on the gate paths' 4096 inputs
+    equals the original key's bit for bit.  Then the ciphertext and
+    secret-key round trips."""
     none = dict.fromkeys(KERNEL_NAMES, 0)
     paths = (("default", None,
               dict(none, blind_rotate_chunk=N_LWE // CHUNK, keyswitch=1)),
@@ -520,23 +706,19 @@ def containers_on_card(nft, dev, secret, cloud, cloud_fft, nand):
     x, y, cx, cy = nand["x"], nand["y"], nand["cx"], nand["cy"]
     for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
         data = c.dumps()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        loaded = nft.NuFHECloudKey.loads(data)
-        t1 = time.time()
-        loaded.bootstrap_key.device(dev)
-        loaded.keyswitch_key.device(dev)
-        torch.cuda.synchronize()
-        t2 = time.time()
-        loaded.bootstrap_key.mac_rhs(dev)
-        torch.cuda.synchronize()
-        t3 = time.time()
+        loaded, t_load = synced(lambda: nft.NuFHECloudKey.loads(data))
+        got, t_prep = prepare_timed(loaded, dev)
         print("%s cloud key container: %d bytes; load %.3f s, then on the "
-              "card the rows key and the keyswitch key %.3f s, the lanes key "
-              "%.3f s; %.3f s in all"
-              % (mode, len(data), t1 - t0, t2 - t1, t3 - t2, t3 - t0))
+              "card the rows key %.3f s, the keyswitch key %.3f s, the lanes "
+              "key %.3f s; %.3f s in all"
+              % (mode, len(data), t_load, t_prep["rows"], t_prep["ab_limbs"],
+                 t_prep["lanes"], t_load + sum(t_prep.values())))
         if loaded.bootstrap_key.bk_coeff is not None:
             raise AssertionError("a loaded key should hold limbs only")
+        for part in ("rows", "ab_limbs", "lanes"):
+            check_equal("loaded %s %s vs host path" % (mode, part), got[part],
+                        host_prepared[mode][1][part])
+        del got
         for path, perf, expect in paths:
             label = "loaded %s key, %s path" % (mode, path)
             vm = nft.VirtualMachine(loaded, perf, device=dev)
@@ -731,16 +913,15 @@ def variant_gates(nft, dev, rng):
     equals the plain CPU gate on 8 inputs."""
     none = dict.fromkeys(KERNEL_NAMES, 0)
     lanes = nft.PerformanceParameters(single_kernel_bootstrap=False)
-    print("variant parameters run at lwe_size=%d (not 500) to keep host "
-          "keygen and the run short; the default chunk of %d divides it"
-          % (VARIANT_LWE, CHUNK))
+    print("variant parameters run at lwe_size=%d (not 500) to keep the run "
+          "short; the default chunk of %d divides it" % (VARIANT_LWE, CHUNK))
     for i, knob in enumerate(VARIANTS):
         t0 = time.time()
         secret, cloud = nft.make_key_pair(nft.DeterministicRNG(SEED + 10 + i),
                                           lwe_size=VARIANT_LWE, **knob)
         clouds = (("NTT", cloud),
                   ("FFT", fft_cloud(nft, cloud, lwe_size=VARIANT_LWE, **knob)))
-        print("%s: keygen (host, n=%d): %.1f s"
+        print("%s: keygen (on the card, n=%d): %.1f s"
               % (knob, VARIANT_LWE, time.time() - t0))
         crng = nft.DeterministicRNG(SEED + 20 + i)
         x, y = (rng.randint(0, 2, MAIN_BATCH).astype(bool) for _ in range(2))
@@ -1007,6 +1188,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi_line()
     print("card (name, power limit): %s" % smi)
+    print("python %s, torch %s, CUDA %s" % (sys.version.split()[0],
+                                            torch.__version__,
+                                            torch.version.cuda))
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(SEED)
     build_kernels()
@@ -1031,10 +1215,15 @@ def main():
     }
     check_kernels(nft, dev, rng, results)
 
-    launches, secret, cloud, cloud_fft, vms, nand = gate_paths(nft, dev, rng)
+    t0 = time.time()
+    secret, cloud, cloud_fft, host_prepared = keygen_on_card(nft, dev)
+    print("keygen and key preparation phase: %.1f s" % (time.time() - t0))
+    launches, vms, nand = gate_paths(nft, dev, rng, secret, cloud, cloud_fft)
+    host_key_gates(nft, dev, secret, host_prepared, nand)
     variant_gates(nft, dev, rng)
     t0 = time.time()
-    containers_on_card(nft, dev, secret, cloud, cloud_fft, nand)
+    containers_on_card(nft, dev, secret, cloud, cloud_fft, nand, host_prepared)
+    del host_prepared
     integer_circuits(nft, dev, rng, secret, vms)
     adder_crossover(nft, dev, rng, secret, vms["default NTT"], smi)
     print("containers, integer circuits and crossover: %.1f s"

@@ -189,7 +189,12 @@ class Context:
         return NuFHESecretKey.from_rng(NuFHEParameters(**params), self.rng)
 
     def make_cloud_key(self, secret_key: NuFHESecretKey):
-        return NuFHECloudKey.from_rng(secret_key.params, self.rng, secret_key)
+        """Keygen on this context's CUDA device; a CPU context uses the
+        host numpy oracle."""
+        on_device = self.device.type != 'cpu'
+        return NuFHECloudKey.from_rng(
+            secret_key.params, self.rng, secret_key, on_device=on_device,
+            device=self.device if on_device else None)
 
     def make_key_pair(self, **params):
         secret_key = self.make_secret_key(**params)

@@ -1,12 +1,15 @@
-"""Key objects, host key generation and key containers
-(``nufhe_tpu/keys.py``'s host path).
+"""Key objects, key generation and key containers (``nufhe_tpu/keys.py``).
 
-Keys are generated on the host with the numpy oracles, in the reference's
-RNG call order, so one ``DeterministicRNG`` seed gives the same keys here
-and in ``nufhe_tpu``.  ``device(dev)`` prepares each key for the kernels.
-``dump``/``load`` write and read the JAX package's containers byte for
-byte (``serialization.py``): a key written by either package loads in the
-other.
+Keys are generated on the CUDA card by default (``ops/keygen``), or on the
+host with the numpy oracles (``on_device=False``), or by the same torch
+code on CPU tensors (``device='cpu'``).  The RNG runs on the host in both
+placements, in the reference's call order, so one ``DeterministicRNG`` seed
+gives the same keys either way and in ``nufhe_tpu``.  A key generated on a
+device keeps its tables there (``bk_coeff``, ``ks_a``, ``ks_b`` are
+tensors); the variance tables stay numpy.  ``device(dev)`` prepares each
+key for the kernels, on ``dev``.  ``dump``/``load`` write and read the JAX
+package's containers byte for byte (``serialization.py``): a key written
+by either package loads in the other.
 """
 
 import io
@@ -19,8 +22,35 @@ from .params import LweParams, TLweParams, TGswParams, NuFHEParameters
 from .rng import rand_uniform_bool, rand_uniform_torus32, rand_gaussian_torus32
 from .ref import tlwe_ref, tgsw_ref, lwe_ref
 from .ops import lwe as dlwe
-from .ops import tgsw, transform
+from .ops import keygen, tgsw, transform
 from . import serialization
+from .utils import to_device, to_numpy
+
+
+def _keygen_device(on_device=None, device=None):
+    """Where keygen runs: None for the host numpy oracle (``on_device=
+    False``), else a ``torch.device``: ``device``, or the current CUDA
+    device when it is None.  Without CUDA and without ``device`` it
+    raises: there is no quiet host fallback."""
+    if on_device is False:
+        return None
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "keygen runs on a CUDA device by default and none is available; "
+            "pass on_device=False for the host numpy keygen or device='cpu' "
+            "for the PyTorch keygen on CPU tensors")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _int32(x):
+    """An int32 tensor stays where it is; anything else becomes numpy."""
+    if torch.is_tensor(x):
+        if x.dtype != torch.int32:
+            raise TypeError("expected an int32 tensor, got %s" % x.dtype)
+        return x
+    return np.asarray(x, Torus32)
 
 
 def _check_kind(meta, kind):
@@ -101,11 +131,15 @@ class BootstrapKey:
     ``nufhe/bootstrap.py:44-92``.
 
     Holds the coefficient-domain samples (``bk_coeff``: (n, mask_size+1,
-    decomp_length, mask_size+1, N) int32) after keygen or a format-1
-    container, or else only the transformed two-sided int8 limbs
-    (``limbs()``: (n, G, O, L, R, KL, 2)) that formats 2-4 carry, which is
-    all either engine needs.  Format 4 (what ``dump`` writes) stores the +v
-    side and, for the rounded form, one bit a residue (``compact()``).
+    decomp_length, mask_size+1, N) int32; a tensor after device keygen,
+    numpy after host keygen or a format-1 container), or else only the
+    transformed int8 limbs that formats 2-4 carry, which is all either
+    engine needs.  Format 4 (what ``dump`` writes) stores the +v side and,
+    for the rounded form, one bit a residue (``compact()``).  A tensor key
+    is transformed where it lies (``ops/keygen.bootstrap_key_limbs_device``)
+    and both engines' keys are built from that compact form on the target
+    device, as they are for a loaded format-4 key: neither runs the numpy
+    transform, ``two_sided_limbs_host`` or the host limb split.
     """
 
     def __init__(self, in_out_params: LweParams, bk_params: TGswParams,
@@ -113,8 +147,7 @@ class BootstrapKey:
         self.in_out_params = in_out_params
         self.bk_params = bk_params
         self.accum_params = bk_params.tlwe_params
-        self.bk_coeff = None if bk_coeff is None else np.asarray(bk_coeff,
-                                                                  Torus32)
+        self.bk_coeff = None if bk_coeff is None else _int32(bk_coeff)
         self.cv = np.asarray(cv, ErrorFloat)
         self._limbs = limbs
         self._compact = compact      # (pos_limbs, delta): the one-sided form
@@ -123,7 +156,12 @@ class BootstrapKey:
         self._mac_rhs_host = None
 
     @classmethod
-    def from_rng(cls, rng, lwe_key: LweKey, tgsw_key: TGswKey):
+    def from_rng(cls, rng, lwe_key: LweKey, tgsw_key: TGswKey,
+                 on_device=None, device=None):
+        """Keygen on ``device`` (default: the current CUDA device) or, with
+        ``on_device=False``, with the host numpy oracles; the same key
+        either way (:func:`_keygen_device`)."""
+        dev = _keygen_device(on_device, device)
         bk_params = tgsw_key.params
         tlwe_params = bk_params.tlwe_params
         mask_size = tlwe_params.mask_size
@@ -132,46 +170,86 @@ class BootstrapKey:
         n = lwe_key.params.size
 
         # reference call order (``nufhe/tlwe.py:185-196``): uniform mask
-        # noise first, then gaussian body noise
+        # noise first, then gaussian body noise; drawn on the host in both
+        # placements
         shape = (n, mask_size + 1, bk_params.decomp_length)
         noises1 = rand_uniform_torus32(rng, shape + (mask_size, poly_n))
         noises2 = rand_gaussian_torus32(rng, 0, noise, shape + (poly_n,))
+        if dev is not None:
+            w = keygen.negacyclic_key_matrix(tgsw_key.tlwe_key.key)
+            a = keygen.bootstrap_key_device(
+                *(to_device(x, dev) for x in (w, lwe_key.key, noises1,
+                                              noises2)),
+                bk_params.base_powers)
+            return cls(lwe_key.params, bk_params, a,
+                       np.full(shape, noise**2, ErrorFloat))
         a, cv = tlwe_ref.tlwe_encrypt_zero(
             tgsw_key.tlwe_key.key, noises1, noises2, noise)
         # message * gadget onto the diagonal (``nufhe/tgsw.py:142-161``)
         a = tgsw_ref.tgsw_add_message(a, lwe_key.key, bk_params)
         return cls(lwe_key.params, bk_params, a.astype(Torus32), cv)
 
+    @property
+    def _exact(self):
+        return self.accum_params.transform_type != 'FFT'
+
     def limbs(self):
-        """The two-sided limb form (cached): 5 limbs (exact) for 'NTT'
-        parameters, 4 (rounded) for 'FFT'.  A container of the other form
-        keeps its own: the limb count selects the engine's form, as in the
-        JAX package."""
+        """The two-sided limb form as numpy (cached): 5 limbs (exact) for
+        'NTT' parameters, 4 (rounded) for 'FFT'.  A container of the other
+        form keeps its own: the limb count selects the engine's form, as in
+        the JAX package.  A tensor key's come from its device compact form."""
         if self._limbs is None:
+            if self._compact is None and torch.is_tensor(self.bk_coeff):
+                self.compact()
             if self._compact is not None:
-                self._limbs = transform.two_sided_limbs_host(*self._compact)
+                pos, delta = self._compact
+                self._limbs = transform.two_sided_limbs_host(
+                    to_numpy(pos), None if delta is None else to_numpy(delta))
             else:
                 self._limbs = tgsw.bootstrap_key_limbs_host(
-                    self.bk_coeff,
-                    exact=self.accum_params.transform_type != 'FFT')
+                    self.bk_coeff, exact=self._exact)
         return self._limbs
 
     def compact(self):
         """The one-sided form ``(pos_limbs, delta)`` that format 4 stores
-        (``ops/transform.one_sided_limbs_host``)."""
+        (``ops/transform.one_sided_limbs_host``).  For a tensor key it is
+        computed on the key's device and stays there
+        (``ops/keygen.bootstrap_key_limbs_device``)."""
         if self._compact is None:
-            self._compact = transform.one_sided_limbs_host(self.limbs())
+            if self._limbs is None and torch.is_tensor(self.bk_coeff):
+                self._compact = keygen.bootstrap_key_limbs_device(
+                    self.bk_coeff, exact=self._exact)
+            else:
+                self._compact = transform.one_sided_limbs_host(self.limbs())
         return self._compact
+
+    def _from_compact(self):
+        """True where both engines' keys are built from the compact form on
+        the target device: a tensor key, or a key without ``bk_coeff`` that
+        has its compact form (a format-4 container)."""
+        return torch.is_tensor(self.bk_coeff) or (
+            self.bk_coeff is None and self._compact is not None)
+
+    def _two_sided_on(self, dev):
+        pos, delta = self.compact()
+        return transform.two_sided_limbs_device(
+            to_device(pos, dev),
+            None if delta is None else to_device(delta, dev))
 
     def device(self, dev):
         """The rows engine's key on ``dev`` (cached): (n, G, O, L, R) int64
         for the exact form, the two-sided (n, 2, G, O, L, R) for the
-        rounded one.  From ``bk_coeff`` the form is ``transform_type``'s;
-        from limbs alone it is the limbs' (``ops/transform.
-        rows_key_from_limbs``, equal to the transform of the same key)."""
+        rounded one.  From a numpy ``bk_coeff`` the form is
+        ``transform_type``'s, by the host transform; from the compact form
+        (a tensor key, a format-4 container) the -v side and the key are
+        derived on ``dev`` (``ops/transform.two_sided_limbs_device``,
+        ``rows_key_from_limbs``), equal to the transform of the same key."""
         dev = torch.device(dev)
         if dev not in self._device:
-            if self.bk_coeff is not None:
+            if self._from_compact():
+                key = transform.rows_key_from_limbs(self._two_sided_on(dev),
+                                                    dev)
+            elif self.bk_coeff is not None:
                 key = transform.bootstrap_key_transformed(
                     self.bk_coeff, dev, self.accum_params.transform_type)
             else:
@@ -181,13 +259,18 @@ class BootstrapKey:
 
     def mac_rhs(self, dev):
         """The lanes engine's key on ``dev`` (cached): the TPU's MAC
-        operand, (n, L, C, Q) int8 (``ops/tgsw.expand_bootstrap_key_device``
-        of :meth:`limbs`), exact (Q = 5*O*R) or rounded (Q = 4*O*R).  A
-        prepared array given to :meth:`set_mac_rhs` is uploaded as it is."""
+        operand, (n, L, C, Q) int8 (``ops/tgsw.expand_bootstrap_key_device``),
+        exact (Q = 5*O*R) or rounded (Q = 4*O*R); from the compact form
+        through ``ops/tgsw.expand_bootstrap_key_device_compact`` on ``dev``,
+        else from :meth:`limbs`.  A prepared array given to
+        :meth:`set_mac_rhs` is uploaded as it is."""
         dev = torch.device(dev)
         if dev not in self._mac_rhs:
             if self._mac_rhs_host is not None:
                 key = torch.from_numpy(self._mac_rhs_host).to(dev)
+            elif self._from_compact():
+                key = tgsw.expand_bootstrap_key_device_compact(
+                    *self.compact(), dev, chunk=50)
             else:
                 key = tgsw.expand_bootstrap_key_device(self.limbs(), dev,
                                                        chunk=50)
@@ -215,9 +298,9 @@ class BootstrapKey:
         """Format 4: the +v limbs, the variances and, rounded form only,
         the packed delta bits."""
         pos, delta = self.compact()
-        arrays = {"limbs_pos": pos, "cv": self.cv}
+        arrays = {"limbs_pos": to_numpy(pos), "cv": self.cv}
         if delta is not None:
-            arrays["delta_bits"] = np.packbits(delta.reshape(-1))
+            arrays["delta_bits"] = np.packbits(to_numpy(delta).reshape(-1))
         serialization.dump(
             file_obj, {"kind": "BootstrapKey", "format": 4}, arrays)
 
@@ -254,13 +337,15 @@ class BootstrapKey:
 
 class LweKeyswitchKey:
     """Keyswitch key: (input_size, decomp_length, base) LWE samples.
+    ``ks_a`` and ``ks_b`` are int32 tensors after device keygen (they stay
+    on their device), numpy otherwise; ``ks_cv`` is numpy.
 
     Reference: ``nufhe/lwe.py:254-308``.
     """
 
     def __init__(self, ks_a, ks_b, ks_cv, log2_base: int):
-        self.ks_a = np.asarray(ks_a, Torus32)
-        self.ks_b = np.asarray(ks_b, Torus32)
+        self.ks_a = _int32(ks_a)
+        self.ks_b = _int32(ks_b)
         self.ks_cv = np.asarray(ks_cv, ErrorFloat)
         self.input_size = self.ks_a.shape[0]
         self.decomp_length = self.ks_a.shape[1]
@@ -270,7 +355,12 @@ class LweKeyswitchKey:
 
     @classmethod
     def from_tgsw_key(cls, rng, ks_decomp_length: int, ks_log2_base: int,
-                      lwe_key: LweKey, tgsw_key: TGswKey):
+                      lwe_key: LweKey, tgsw_key: TGswKey, on_device=None,
+                      device=None):
+        """Keygen on ``device`` (default: the current CUDA device) or, with
+        ``on_device=False``, with the host numpy oracle; the same key either
+        way (:func:`_keygen_device`)."""
+        dev = _keygen_device(on_device, device)
         extract_params = tgsw_key.params.tlwe_params.extracted_lweparams
         in_key = LweKey.from_tlwe_key(extract_params, tgsw_key.tlwe_key)
         out_key = lwe_key
@@ -280,12 +370,21 @@ class LweKeyswitchKey:
         base = 2**ks_log2_base
 
         # reference order (``nufhe/lwe.py:285-288``): centred gaussian
-        # b-noise first, then uniform a-noise
+        # b-noise first, then uniform a-noise; drawn on the host in both
+        # placements
         noises_b = rand_gaussian_torus32(
             rng, 0, noise, (input_size, ks_decomp_length, base - 1),
             centered=True)
         noises_a = rand_uniform_torus32(
             rng, (input_size, ks_decomp_length, base - 1, output_size))
+        if dev is not None:
+            ks_a, ks_b = keygen.make_keyswitch_key_device(
+                *(to_device(x, dev) for x in (in_key.key, out_key.key,
+                                              noises_a, noises_b)),
+                ks_decomp_length, ks_log2_base)
+            ks_cv = np.zeros((input_size, ks_decomp_length, base), ErrorFloat)
+            ks_cv[:, :, 1:] = noise**2
+            return cls(ks_a, ks_b, ks_cv, ks_log2_base)
         ks_a, ks_b, ks_cv = lwe_ref.make_keyswitch_key(
             in_key.key, out_key.key, noises_a, noises_b,
             ks_decomp_length, ks_log2_base, noise)
@@ -293,7 +392,8 @@ class LweKeyswitchKey:
 
     def device(self, dev):
         """``(arrays, meta)`` of ``ops/lwe.prepare_keyswitch_device`` on
-        ``dev`` (cached)."""
+        ``dev`` (cached): packed on ``dev``, but for numpy tables on the CPU,
+        which the numpy oracle packs."""
         dev = torch.device(dev)
         if dev not in self._device:
             self._device[dev] = dlwe.prepare_keyswitch_device(
@@ -305,7 +405,8 @@ class LweKeyswitchKey:
         zero encryptions (the reference zeroes them too,
         ``lwe_gpu.mako:18-56``).  A key whose slice 0 is not zero raises
         rather than change in a dump/load round trip."""
-        if np.any(self.ks_a[:, :, 0]) or np.any(self.ks_b[:, :, 0]):
+        ks_a, ks_b = to_numpy(self.ks_a), to_numpy(self.ks_b)
+        if np.any(ks_a[:, :, 0]) or np.any(ks_b[:, :, 0]):
             raise ValueError(
                 "keyswitch key digit-0 slice is not the trivial zero "
                 "encryption; refusing the lossy format-2 dump")
@@ -313,8 +414,8 @@ class LweKeyswitchKey:
             file_obj,
             {"kind": "LweKeyswitchKey", "log2_base": self.log2_base,
              "format": 2},
-            {"ks_a_nz": self.ks_a[:, :, 1:],
-             "ks_b_nz": self.ks_b[:, :, 1:],
+            {"ks_a_nz": ks_a[:, :, 1:],
+             "ks_b_nz": ks_b[:, :, 1:],
              "ks_cv_nz": self.ks_cv[:, :, 1:]})
 
     @classmethod
@@ -332,8 +433,8 @@ class LweKeyswitchKey:
 
     def __eq__(self, other):
         return (self.__class__ == other.__class__
-                and np.array_equal(self.ks_a, other.ks_a)
-                and np.array_equal(self.ks_b, other.ks_b))
+                and np.array_equal(to_numpy(self.ks_a), to_numpy(other.ks_a))
+                and np.array_equal(to_numpy(self.ks_b), to_numpy(other.ks_b)))
 
 
 def _params_meta(params: NuFHEParameters):
@@ -400,12 +501,18 @@ class NuFHECloudKey:
         self.keyswitch_key = keyswitch_key
 
     @classmethod
-    def from_rng(cls, params: NuFHEParameters, rng, secret_key: NuFHESecretKey):
+    def from_rng(cls, params: NuFHEParameters, rng, secret_key: NuFHESecretKey,
+                 on_device=None, device=None):
+        """Keygen on ``device`` (default: the current CUDA device; raises
+        without one) or, with ``on_device=False``, on the host
+        (:func:`_keygen_device`)."""
+        dev = _keygen_device(on_device, device)
+        place = dict(on_device=dev is not None, device=dev)
         tgsw_key = TGswKey.from_rng(params.tgsw_params, rng)
-        bk = BootstrapKey.from_rng(rng, secret_key.lwe_key, tgsw_key)
+        bk = BootstrapKey.from_rng(rng, secret_key.lwe_key, tgsw_key, **place)
         ks = LweKeyswitchKey.from_tgsw_key(
             rng, params.ks_decomp_length, params.ks_log2_base,
-            secret_key.lwe_key, tgsw_key)
+            secret_key.lwe_key, tgsw_key, **place)
         return cls(params, bk, ks)
 
     def dump(self, file_obj):
@@ -443,12 +550,20 @@ class NuFHECloudKey:
                 and self.keyswitch_key == other.keyswitch_key)
 
 
-def make_key_pair(rng, **params):
-    """Create a (secret key, cloud key) pair on the host.
-    Reference: ``nufhe/api_low_level.py:242-250``."""
+def make_key_pair(rng, on_device=None, device=None, **params):
+    """Create a (secret key, cloud key) pair.
+    Reference: ``nufhe/api_low_level.py:242-250``.
+
+    The cloud key is generated on ``device``, by default the current CUDA
+    device (it raises when there is none); ``device='cpu'`` runs the same
+    PyTorch code on CPU tensors, and ``on_device=False`` the host numpy
+    oracle.  All give the same keys for a seeded ``DeterministicRNG``.
+    """
+    dev = _keygen_device(on_device, device)
     nufhe_params = NuFHEParameters(**params)
     secret_key = NuFHESecretKey.from_rng(nufhe_params, rng)
-    cloud_key = NuFHECloudKey.from_rng(nufhe_params, rng, secret_key)
+    cloud_key = NuFHECloudKey.from_rng(nufhe_params, rng, secret_key,
+                                       on_device=dev is not None, device=dev)
     return secret_key, cloud_key
 
 
@@ -459,8 +574,10 @@ def secret_key_from_array(params: NuFHEParameters, lwe_key):
 
 def cloud_key_from_arrays(params: NuFHEParameters, bk_coeff, bk_cv,
                           ks_a, ks_b, ks_cv, log2_base: int, mac_rhs=None):
-    """A cloud key holding the given numpy arrays: the coefficient-domain
-    bootstrap key and its variances, and the keyswitch key tables.
+    """A cloud key holding the given arrays: the coefficient-domain
+    bootstrap key and its variances, and the keyswitch key tables (numpy,
+    or int32 tensors for ``bk_coeff``, ``ks_a`` and ``ks_b``, which stay on
+    their device).
     ``mac_rhs``, if given, is the prepared lanes-engine key (the JAX
     package's ``bootstrap_key.device()``; :meth:`BootstrapKey.set_mac_rhs`)."""
     bk = BootstrapKey(params.in_out_params, params.tgsw_params, bk_coeff, bk_cv)

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..numeric import wrap_i32
+from ..utils import to_device
 from . import keyswitch as ks
 
 
@@ -73,13 +74,47 @@ def ks_n_pad(output_size):
     return -(-(output_size + 2) // 128) * 128
 
 
+def _ks_limbs(v):
+    """The KS_LIMBS balanced radix-2^8 limbs of int64 values (numpy arrays
+    or tensors), each in [-128, 127]."""
+    limbs = []
+    for _ in range(KS_LIMBS):
+        l0 = ((v + 128) & 255) - 128
+        limbs.append(l0)
+        v = (v - l0) >> KS_LIMB_BITS
+    return limbs
+
+
+def _ks_pack_device(ks_a, ks_b, device):
+    """The packing of :func:`prepare_keyswitch_device` in torch, on
+    ``device`` (the JAX package's ``_ks_pack_device``); digits 0..3 of an
+    int32 value depend only on its low 32 bits, so it equals the numpy
+    branch bit for bit."""
+    ks_a, ks_b = to_device(ks_a, device), to_device(ks_b, device)
+    input_size, decomp_length, base, output_size = ks_a.shape
+    rows = input_size * decomp_length
+    ab = torch.cat([ks_a, ks_b[..., None]], dim=-1)         # (in, l, base, out+1)
+    ab = ab.permute(2, 1, 0, 3).reshape(base, rows, output_size + 1)[1:]
+    padded = torch.zeros((base - 1, KS_LIMBS, rows, ks_n_pad(output_size)),
+                         dtype=torch.int8, device=device)
+    padded[..., :output_size + 1] = torch.stack(
+        _ks_limbs(ab.to(torch.int64)), dim=1)
+    padded[:, 0, :, output_size + 1] = 1
+    return padded
+
+
 def prepare_keyswitch_device(ks_a, ks_b, ks_cv, log2_base: int, device):
     """Pack the keyswitch key into K2's operand, the JAX package's
-    ``ab_limbs`` bit for bit (the host branch of
-    ``nufhe_tpu/ops/lwe.py::prepare_keyswitch_device``).
+    ``ab_limbs`` bit for bit (``nufhe_tpu/ops/lwe.py::
+    prepare_keyswitch_device``), where it is to live: tensor tables
+    (``ops/keygen.make_keyswitch_key_device``) are packed on ``device`` with
+    no host round trip; numpy tables for a CUDA device are uploaded as they
+    are (the same bytes as the packed int8 form) and packed there; numpy
+    tables for the CPU are packed by the numpy oracle.
 
-    :param ks_a: (in_size, l, base, out) int32 numpy; ``ks_b``: (in_size, l,
-        base); ``ks_cv``: (in_size, l, base) float32.
+    :param ks_a: (in_size, l, base, out) int32 numpy or tensor; ``ks_b``:
+        (in_size, l, base), the same kind; ``ks_cv``: (in_size, l, base)
+        float32 numpy.
     :returns: ``(arrays, meta)``: ``arrays['ab_limbs']`` is the
         (base-1, KS_LIMBS, rows, n_pad) int8 tensor: for each nonzero digit
         value v, the [a | b] entries in l-major row order (r = j * in_size
@@ -89,7 +124,7 @@ def prepare_keyswitch_device(ks_a, ks_b, ks_cv, log2_base: int, device):
         are the trivial zero encryption and are dropped.
         ``arrays['cv_scale']`` is the variance of one nonzero-digit entry.
     """
-    ks_a, ks_b, ks_cv = (np.asarray(x) for x in (ks_a, ks_b, ks_cv))
+    ks_cv = np.asarray(ks_cv)
     input_size, decomp_length, base, output_size = ks_a.shape
     if log2_base >= 8:
         raise ValueError("ks_log2_base must be < 8, got %d" % log2_base)
@@ -105,21 +140,20 @@ def prepare_keyswitch_device(ks_a, ks_b, ks_cv, log2_base: int, device):
             "keyswitch cv table is not constant on nonzero digits; the "
             "count-based cv does not apply")
 
-    rows = input_size * decomp_length
-    ab = np.concatenate([ks_a, ks_b[..., None]], axis=-1)   # (in, l, base, out+1)
-    ab = ab.transpose(2, 1, 0, 3).reshape(base, rows, output_size + 1)[1:]
-    v = ab.astype(np.int64)
-    limbs = []
-    for _ in range(KS_LIMBS):
-        l0 = ((v + 128) & 255) - 128
-        limbs.append(l0.astype(np.int8))
-        v = (v - l0) >> KS_LIMB_BITS
-    padded = np.zeros((base - 1, KS_LIMBS, rows, ks_n_pad(output_size)),
-                      np.int8)
-    padded[..., :output_size + 1] = np.stack(limbs, axis=1)
-    padded[:, 0, :, output_size + 1] = 1
-    arrays = dict(ab_limbs=torch.from_numpy(padded).to(device),
-                  cv_scale=cv_scale)
+    if torch.is_tensor(ks_a) or torch.device(device).type != 'cpu':
+        ab_limbs = _ks_pack_device(ks_a, ks_b, device)
+    else:
+        ks_a, ks_b = np.asarray(ks_a), np.asarray(ks_b)
+        rows = input_size * decomp_length
+        ab = np.concatenate([ks_a, ks_b[..., None]], axis=-1)
+        ab = ab.transpose(2, 1, 0, 3).reshape(base, rows, output_size + 1)[1:]
+        padded = np.zeros((base - 1, KS_LIMBS, rows, ks_n_pad(output_size)),
+                          np.int8)
+        padded[..., :output_size + 1] = np.stack(
+            _ks_limbs(ab.astype(np.int64)), axis=1)
+        padded[:, 0, :, output_size + 1] = 1
+        ab_limbs = torch.from_numpy(padded).to(device)
+    arrays = dict(ab_limbs=ab_limbs, cv_scale=cv_scale)
     meta = KeyswitchMeta(base=base, decomp_length=decomp_length,
                          log2_base=log2_base, input_size=input_size,
                          output_size=output_size)

@@ -6,6 +6,7 @@ import numpy as np
 import torch
 
 from ..ref import transform_ref as tr
+from ..utils import to_device
 from . import flat_engine as fe
 from . import transform as tf
 
@@ -46,13 +47,11 @@ def expand_bootstrap_key_device(limbs, device, chunk: int = 125):
     time into the preallocated result, so that the intermediates stay about
     the size of one chunk's output.
 
-    :param limbs: (n, G, O, L, R, KL, 2) int8 (numpy or tensor).
+    :param limbs: (n, G, O, L, R, KL, 2) int8 (numpy or tensor, any device).
     :returns: (n, L, C, Q) int8 tensor, C = G*2R, Q = 5*O*R (exact) or
         4*O*R (rounded).
     """
-    if not torch.is_tensor(limbs):
-        limbs = torch.from_numpy(np.ascontiguousarray(limbs))
-    limbs = limbs.to(device)      # one upload; the chunks slice it there
+    limbs = to_device(limbs, device)  # one upload; the chunks slice it there
     n, g, o_sz = limbs.shape[:3]
     groups = limbs.shape[-2]
     out = torch.empty((n, tf.L, g * tf.ACC_LIMBS * tf.R, groups * o_sz * tf.R),
@@ -60,6 +59,21 @@ def expand_bootstrap_key_device(limbs, device, chunk: int = 125):
     for i in range(0, n, chunk):
         out[i:i + chunk] = tf.build_mac_rhs(limbs[i:i + chunk])
     return out
+
+
+def expand_bootstrap_key_device_compact(pos, delta, device, chunk: int = 125):
+    """The one-sided (compact) form -> the MAC operand on ``device``: one
+    upload of half the two-sided form's bytes, the -v side derived there
+    (``ops/transform.two_sided_limbs_device``), then
+    :func:`expand_bootstrap_key_device`.
+
+    :param pos: (n, G, O, L, R, KL) int8, numpy or tensor.
+    :param delta: (n, G, O, L, R) 0/1 bits (rounded form) or None.
+    """
+    delta = None if delta is None else to_device(delta, device)
+    return expand_bootstrap_key_device(
+        tf.two_sided_limbs_device(to_device(pos, device), delta), device,
+        chunk=chunk)
 
 
 def prepare_bootstrap_key_device(bk_coeff, device, chunk: int = 50,

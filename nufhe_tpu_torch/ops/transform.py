@@ -3,8 +3,9 @@ form the CMUX step reads, for the exact ('NTT') and the rounded-key
 ('FFT') engine.
 
 The CMUX step (``ops/cmux.py``) multiplies in the transform domain against
-the bootstrap key.  The key is transformed once, on the host, with the numpy
-oracle (``ref/transform_ref.forward``), and each residue is kept mod 2^38:
+the bootstrap key.  The key is transformed once, on the host with the numpy
+oracle (``ref/transform_ref.forward``) or on the device from its digit
+planes (``ops/keygen``), and each residue is kept mod 2^38:
 only bits 6..37 of the unscaled inverse survive the final ``>> 6`` and mod
 2^32, and every stage is a ring operation, so a multiple of 2^38 in an
 operand changes nothing.  Centred residues (|v| <= 2^37) keep each 64-bit
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from ..numeric import wrap_i32
+from ..utils import to_device
 from ..ref import transform_ref as tr
 
 N, M, R, L, LOG_L, INV_SHIFT = tr.N, tr.M, tr.R, tr.L, tr.LOG_L, tr.INV_SHIFT
@@ -25,6 +27,14 @@ def centred_residues(v_u64):
     """u64 residues -> int64 values mod 2^KEY_BITS in (-2^37, 2^37]."""
     r = (np.asarray(v_u64, np.uint64) & np.uint64(2**KEY_BITS - 1)).astype(np.int64)
     return np.where(r > 2**(KEY_BITS - 1), r - 2**KEY_BITS, r)
+
+
+def _centred_residues_t(v):
+    """int64 tensor -> its residues mod 2^KEY_BITS in (-2^37, 2^37]
+    (:func:`centred_residues` on tensors; two's complement keeps the low
+    bits of a negative value as the uint64 cast does)."""
+    r = v & (2**KEY_BITS - 1)
+    return torch.where(r > 2**(KEY_BITS - 1), r - 2**KEY_BITS, r)
 
 
 def bootstrap_key_transformed(bk_coeff, device, transform_type='NTT'):
@@ -40,7 +50,14 @@ def bootstrap_key_transformed(bk_coeff, device, transform_type='NTT'):
     (64 X mod 2^38) >> 6 = X mod 2^32, the CMUX step's inverse and final
     ``>> 6`` then give the rounded engine's result unchanged.
 
-    :param bk_coeff: (n, mask1, l, mask1, N) int32 numpy array.
+    A numpy key is transformed on the host with the numpy oracle
+    (``ref/transform_ref.forward``) and uploaded.  A tensor key is
+    transformed on ``device`` without a trip through the host: the one-sided
+    limbs of ``ops/keygen.bootstrap_key_limbs_device``, then
+    :func:`two_sided_limbs_device` and :func:`rows_key_from_limbs`; the
+    result is the same int64 tensor bit for bit.
+
+    :param bk_coeff: (n, mask1, l, mask1, N) int32 numpy array or tensor.
     :returns: (n, G = mask1*l, O = mask1, L, R) int64 tensor on ``device``
         ('NTT'), or (n, 2, G, O, L, R) with the side second ('FFT');
         g = o_in * l + d, matching ``ops/cmux`` and the kernels.
@@ -48,10 +65,16 @@ def bootstrap_key_transformed(bk_coeff, device, transform_type='NTT'):
     if transform_type not in ('NTT', 'FFT'):
         raise ValueError("transform_type must be 'NTT' or 'FFT', got %r"
                          % (transform_type,))
-    bk_coeff = np.asarray(bk_coeff)
     n, mask1, l, mask1b, n_poly = bk_coeff.shape
     if mask1b != mask1 or n_poly != N:
-        raise ValueError("unexpected bootstrap key shape %s" % (bk_coeff.shape,))
+        raise ValueError("unexpected bootstrap key shape %s"
+                         % (tuple(bk_coeff.shape),))
+    if torch.is_tensor(bk_coeff):
+        from . import keygen
+        pos, delta = keygen.bootstrap_key_limbs_device(
+            bk_coeff.to(device), exact=transform_type == 'NTT')
+        return rows_key_from_limbs(two_sided_limbs_device(pos, delta), device)
+    bk_coeff = np.asarray(bk_coeff)
     hat = tr.forward(bk_coeff)                         # (n, mask1, l, mask1, L, R)
     if transform_type == 'NTT':
         key = centred_residues(hat).reshape(n, mask1 * l, mask1, L, R)
@@ -231,7 +254,8 @@ def relimb_from_radix8(old):
 def rows_key_from_limbs(limbs, device):
     """Two-sided key limbs -> the rows engine's key, equal to
     :func:`bootstrap_key_transformed` of the coefficient key they came from.
-    The limb count selects the form, as it does for the lanes key.
+    The limb count selects the form, as it does for the lanes key.  Runs on
+    ``device`` (a numpy argument is uploaded first, as int8).
 
     Exact form (5 limbs): side 0 holds vlo and 4 digits of vhi mod 2^32,
     and v = vlo + 64 * vhi mod 2^38 is the residue itself.  Rounded form
@@ -239,33 +263,35 @@ def rows_key_from_limbs(limbs, device):
     2^38 is the port's rounded side s (the 64 * 2^32 = 2^38 wrap is
     harmless).  Both are then centred as :func:`centred_residues` does.
 
-    :param limbs: (n, G, O, L, R, KL, 2) int8 numpy array (L in natural
-        frequency order, as ``ops/tgsw.bootstrap_key_limbs_host`` gives).
+    :param limbs: (n, G, O, L, R, KL, 2) int8 numpy array or tensor (L in
+        natural frequency order, as ``ops/tgsw.bootstrap_key_limbs_host``
+        gives).
     :returns: (n, G, O, L, R) int64 tensor on ``device`` (5 limbs), or
         (n, 2, G, O, L, R) (4 limbs).
     """
-    limbs = np.asarray(limbs)
     kl = limbs.shape[-2]
     if kl not in (KEY_LIMBS, KEY_LIMBS_APPROX) or limbs.shape[-1] != 2:
         raise ValueError("limbs must end in (%d or %d, 2), got %s"
-                         % (KEY_LIMBS, KEY_LIMBS_APPROX, limbs.shape))
-    digs = limbs.astype(np.int64)
+                         % (KEY_LIMBS, KEY_LIMBS_APPROX, tuple(limbs.shape)))
+    limbs = to_device(limbs, device)
+    shifts = torch.arange(4, device=limbs.device) * KEY_LIMB_BITS
     if kl == KEY_LIMBS:
-        digs = digs[..., 0]                       # the +v side
-        hi = (digs[..., 1:] << (np.arange(4) * KEY_LIMB_BITS)).sum(-1)
-        key = centred_residues((digs[..., 0] + (hi << 6)).astype(np.uint64))
+        digs = limbs[..., 0].to(torch.int64)      # the +v side
+        hi = (digs[..., 1:] << shifts).sum(-1)
+        key = _centred_residues_t(digs[..., 0] + (hi << 6))
     else:
-        q = (digs << (np.arange(4) * KEY_LIMB_BITS)[:, None]).sum(-2)
-        key = np.moveaxis(centred_residues((q << 6).astype(np.uint64)), -1, 1)
-    return torch.from_numpy(np.ascontiguousarray(key)).to(device)
+        q = (limbs.to(torch.int64) << shifts[:, None]).sum(-2)
+        key = torch.movedim(_centred_residues_t(q << 6), -1, 1)
+    return key.contiguous()
 
 
 def _neg_side_digits(whi, n_digs):
-    """Balanced radix-2^8 digits of ``whi`` (int64, mod 2^32 semantics)."""
+    """Balanced radix-2^8 digits of ``whi`` (an int64 array or tensor, mod
+    2^32 semantics), each in [-128, 127]."""
     digs = []
     for _ in range(n_digs):
         d = ((whi + 128) & 255) - 128
-        digs.append(d.astype(np.int8))
+        digs.append(d)
         whi = (whi - d) >> KEY_LIMB_BITS
     return digs
 
@@ -290,9 +316,37 @@ def two_sided_limbs_host(pos, delta=None):
     n_digs = digs.shape[-1]
     w = np.arange(n_digs, dtype=np.int64) * KEY_LIMB_BITS
     vhi = (digs << w).sum(-1)
-    neg = ([wlo.astype(np.int8)] if exact else []) + \
-        _neg_side_digits(carry - vhi, n_digs)
-    return np.stack([pos, np.stack(neg, axis=-1)], axis=-1)
+    neg = ([wlo] if exact else []) + _neg_side_digits(carry - vhi, n_digs)
+    return np.stack([pos, np.stack(neg, axis=-1).astype(np.int8)], axis=-1)
+
+
+def two_sided_limbs_device(pos, delta=None):
+    """:func:`two_sided_limbs_host` on tensors, on ``pos``'s device (the JAX
+    package's ``two_sided_limbs_device``): the (..., KL, 2) int8 two-sided
+    form from the +v side, in int64 so that nothing overflows; digits 0..3
+    depend only on the low 32 bits, so it equals the host form bit for bit.
+
+    :param pos: (..., KEY_LIMBS or KEY_LIMBS_APPROX) int8 tensor.
+    :param delta: (...,) 0/1 tensor (rounded form), else None.
+    """
+    exact = pos.shape[-1] == KEY_LIMBS
+    p64 = pos.to(torch.int64)
+    if exact:
+        vlo = p64[..., 0]
+        digs = p64[..., 1:]
+        boundary = vlo == -32
+        carry = boundary.to(torch.int64)
+        wlo = torch.where(boundary, -32, -vlo)
+    else:
+        if delta is None:
+            raise ValueError("rounded-mode compact limbs need delta bits")
+        digs = p64
+        carry = delta.to(pos.device, torch.int64)
+    n_digs = digs.shape[-1]
+    w = torch.arange(n_digs, device=pos.device) * KEY_LIMB_BITS
+    neg = ([wlo] if exact else []) + \
+        _neg_side_digits(carry - (digs << w).sum(-1), n_digs)
+    return torch.stack([pos, torch.stack(neg, dim=-1).to(torch.int8)], dim=-1)
 
 
 BITREV_L = tr.bit_reverse(LOG_L)

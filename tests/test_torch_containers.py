@@ -44,7 +44,7 @@ def keys():
     for mode in MODES:
         js, jc = jnf.make_key_pair(jnf.DeterministicRNG(SEED), on_device=False,
                                    lwe_size=LWE_SIZE, transform_type=mode)
-        ts, tc = tnf.make_key_pair(tnf.DeterministicRNG(SEED),
+        ts, tc = tnf.make_key_pair(tnf.DeterministicRNG(SEED), on_device=False,
                                    lwe_size=LWE_SIZE, transform_type=mode)
         out[mode] = js, jc, ts, tc
     return out

@@ -34,7 +34,8 @@ def key_pairs():
     trng = tnf.DeterministicRNG(SEED)
     jsecret, jcloud = jnf.make_key_pair(jrng, lwe_size=LWE_SIZE,
                                         on_device=False)
-    tsecret, tcloud = tnf.make_key_pair(trng, lwe_size=LWE_SIZE)
+    tsecret, tcloud = tnf.make_key_pair(trng, on_device=False,
+                                        lwe_size=LWE_SIZE)
     return (jrng, jsecret, jcloud), (trng, tsecret, tcloud)
 
 
