@@ -81,12 +81,32 @@ and prints no result line):
 8. the ripple / Kogge-Stone crossover: ``uint_add`` at batch {1, 16, 128,
    1024} x width {8, 16}, one synchronised host-clock time a form after a
    checked first call, printed as one ``adder_crossover`` JSON line;
-9. timing at batch 2^14: warm ms/bit of the NAND in both engines on the
+9. ``multi_device``: ``nufhe_tpu_torch.parallel`` in a world-1 NCCL
+   process group (a FileStore in a temp dir, destroyed at the end), with
+   the n=500 keys made on the card, each path with the launch counts set to
+   0 just before it and read just after:
+   - data parallel: the 4096-input NAND over ``shard_ciphertext`` on a
+     (1, 1) mesh, through ``VirtualMachine.gate_nand`` and
+     ``gather_ciphertext``: equal to the default NAND bit for bit, 10 K3 +
+     1 K2;
+   - tensor parallel: ``sharded_bootstrap_fn(force_tp=True)`` in
+     ``mode='limbs'`` and ``'slots'``, both engines, on the NAND's linear
+     part of the 4096 inputs: equal to the lanes NAND bit for bit, 500 K4
+     launches, each split around a collective (500 collectives), 1 K2;
+   - K4's MAC grid on each shard of a 2-way and a 4-way limbs split and
+     slots split of a key row, both forms, batch 2^14: the shards' channels
+     summed (mod 2^32) or stacked on the card, then grid 3, equal to the
+     unsplit K4 step and to the plain version bit for bit;
+   - ms/bit at 2^14 of the data-parallel NAND and of each tensor-parallel
+     mode, both engines, and the share of the gate that its 500
+     collectives take alone (CUDA events), as one ``multi_device`` JSON
+     line;
+10. timing at batch 2^14: warm ms/bit of the NAND in both engines on the
    default path, the per-step path and the lanes path, and of MUX; each
    kernel's ms per launch beside its plain version (whose output it
    equals there too), a PyTorch library call where one computes the same
    function, and its bound; K4's three grids timed apart;
-10. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
+11. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The bound of a kernel is the larger of its bytes (each input read once,
@@ -100,7 +120,9 @@ counted at 67e12/s, its float32 rate there, the highest it states for
 such units (its tensor-core form's int8 operations are printed beside
 it: they take longer).  A kernel's ``launches`` in the JSON line is its
 count in the gate of the path that runs it (K1: the per-step path; K2
-and K3: the default path; K4: the lanes path).
+and K3: the default path; K4: the lanes path).  The collectives between
+the grids of a tensor-parallel step are counted apart (``lanes_step.
+collectives``).
 """
 
 import json
@@ -189,8 +211,10 @@ def counters():
 
 
 def reset_counts():
+    from nufhe_tpu_torch.ops import lanes_step
     for mod in counters().values():
         mod.launches = 0
+    lanes_step.collectives = 0
 
 
 def read_counts():
@@ -1167,6 +1191,194 @@ def k4_grid_split(dev, rng, tp, kw):
     return split
 
 
+def nand_linear(cx, cy):
+    """The NAND's linear part, (0, 1/8) - x - y, as the gate computes it."""
+    from nufhe_tpu_torch.numeric import phase_to_t32, wrap_i32
+    a = wrap_i32(-(cx.a.to(torch.int64) + cy.a.to(torch.int64)))
+    b = wrap_i32(int(phase_to_t32(1, 8)) - cx.b.to(torch.int64)
+                 - cy.b.to(torch.int64))
+    return a, b
+
+
+def tp_counts():
+    from nufhe_tpu_torch.ops import lanes_step
+    return dict(read_counts(), collectives=lanes_step.collectives)
+
+
+def multi_device(nft, dev, rng, secret, cloud, cloud_fft, nand, results,
+                 smi):
+    """Phase 9: ``nufhe_tpu_torch.parallel`` in a world-1 NCCL group."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from nufhe_tpu_torch.numeric import phase_to_t32
+    from nufhe_tpu_torch.ops import flat_engine as fe
+    from nufhe_tpu_torch.parallel import distributed as pdist, mesh as pmesh
+    t0 = time.time()
+    store = tempfile.mkdtemp(prefix="nufhe_pg_")
+    pdist.initialize("file://" + os.path.join(store, "store"), 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError("the process group is not NCCL")
+        mesh = pmesh.make_mesh(1, 1)
+        report = dict(card=smi, backend="nccl", world=1)
+        clouds = {"NTT": cloud, "FFT": cloud_fft}
+        none = dict.fromkeys(KERNEL_NAMES, 0)
+
+        # data parallel: the default NAND on the rank's shard
+        vm = nft.VirtualMachine(cloud, device=dev)
+        cx, cy = (pmesh.shard_ciphertext(c.copy(), mesh)
+                  for c in (nand["cx"], nand["cy"]))
+        torch.cuda.synchronize()
+        reset_counts()
+        out = vm.gate_nand(cx, cy)
+        torch.cuda.synchronize()
+        counts = tp_counts()
+        whole = pmesh.gather_ciphertext(out, mesh)
+        want = nand["out"]["NTT"]
+        same = torch.equal(whole.a, want.a) and torch.equal(whole.b, want.b)
+        print("multi_device DP NAND on %d inputs, (1, 1) mesh: launches %s, "
+              "vs the default NAND: %s" % (MAIN_BATCH, json.dumps(counts),
+                                           "bit-equal" if same else
+                                           "DIFFERENT"))
+        expect = dict(none, keyswitch=1, blind_rotate_chunk=N_LWE // CHUNK,
+                      collectives=0)
+        if counts != expect or not same:
+            raise AssertionError("multi_device DP NAND: expected launches %s "
+                                 "and the default NAND" % expect)
+
+        # tensor parallel, world 1: every step split around a collective
+        lin_a, lin_b = nand_linear(nand["cx"], nand["cy"])
+        fns = {}
+        for mode in pmesh.MODES:
+            for engine, c in clouds.items():
+                bk = pmesh.shard_bootstrap_key(c.bootstrap_key.mac_rhs(dev),
+                                               mesh, mode)
+                ks_arrays, ks_meta = c.keyswitch_key.device(dev)
+                ks = pmesh.replicate(ks_arrays, mesh)
+                fn = pmesh.sharded_bootstrap_fn(
+                    mesh, ks_meta, int(phase_to_t32(1, 8)),
+                    c.params.tgsw_params, mode=mode, force_tp=True)
+                fns[mode, engine] = (fn, bk, ks)
+                torch.cuda.synchronize()
+                reset_counts()
+                a, b, cv = fn(lin_a, lin_b, bk, ks)
+                torch.cuda.synchronize()
+                counts = tp_counts()
+                want = nand["out"][engine]
+                same = torch.equal(a, want.a) and torch.equal(b, want.b)
+                print("multi_device TP %s %s NAND on %d inputs: launches %s, "
+                      "vs the lanes NAND: %s"
+                      % (mode, engine, MAIN_BATCH, json.dumps(counts),
+                         "bit-equal" if same else "DIFFERENT"))
+                # each of the 500 K4 launches split around a collective
+                expect = dict(none, keyswitch=1, lanes_step=N_LWE,
+                              collectives=N_LWE)
+                if counts != expect or not same \
+                        or not torch.isfinite(cv).all():
+                    raise AssertionError(
+                        "multi_device TP %s %s: expected launches %s and the "
+                        "lanes NAND" % (mode, engine, expect))
+
+        k4_shards(dev, rng, cloud.params.tgsw_params, results)
+
+        # timing at 2^14
+        b = TIMING_BATCH
+        crng = nft.DeterministicRNG(SEED + 5)
+        x, y = (rng.randint(0, 2, b).astype(bool) for _ in range(2))
+        tx, ty = (nft.encrypt(crng, secret, v, device=dev) for v in (x, y))
+        sx, sy = (pmesh.shard_ciphertext(c.copy(), mesh) for c in (tx, ty))
+        report["dp_nand_ms_bit"], _ = gate_ms_bit(nft, secret, vm,
+                                                  "gate_nand", (sx, sy),
+                                                  ~(x & y))
+        lin_a, lin_b = nand_linear(tx, ty)
+        group = mesh.get_group("model")
+        for (mode, engine), (fn, bk, ks) in fns.items():
+            out = fn(lin_a, lin_b, bk, ks)          # warm-up, checked
+            got = nft.decrypt(secret, nft.LweSampleArray(
+                clouds[engine].params.in_out_params, *out))
+            if not np.array_equal(got, ~(x & y)):
+                raise AssertionError("TP %s %s at 2^14 decrypts wrong"
+                                     % (mode, engine))
+            del out
+            gate_ms = [cuda_ms(lambda: fn(lin_a, lin_b, bk, ks), 1)
+                       for _ in range(2)]
+            n_ch = 1 if engine == "FFT" else 2
+            chan = torch.zeros((b, n_ch, 2, 64, 32), dtype=torch.int32,
+                               device=dev)
+            collective = (fe.sum_channels if mode == "limbs"
+                          else fe.gather_slots)
+            collective(chan, group)
+            coll_ms = cuda_ms(lambda: collective(chan, group), N_LWE) * N_LWE
+            del chan
+            report["tp_%s_%s" % (mode, engine)] = dict(
+                ms_bit=[t / b for t in gate_ms], collectives_ms=coll_ms,
+                collective_share=coll_ms / min(gate_ms))
+            print("multi_device TP %s %s batch %d: %s ms/bit; its %d "
+                  "collectives alone %.3f ms, %.4f of the gate"
+                  % (mode, engine, b, [t / b for t in gate_ms], N_LWE,
+                     coll_ms, coll_ms / min(gate_ms)))
+        print("multi_device DP NAND batch %d: %s ms/bit"
+              % (b, report["dp_nand_ms_bit"]))
+        print(json.dumps({"multi_device": report}))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print("multi_device phase: %.1f s" % (time.time() - t0))
+
+
+def k4_shards(dev, rng, tp, results):
+    """K4's grids 1 and 2 on each shard of every split the kernel is built
+    for (``lanes_step.KERNEL_SPLITS``: limbs 2- and 4-way where they divide
+    G, slots 2-, 4- and 8-way), both forms, at the timing batch and the
+    defaults, and at the variant shapes (mask1, l) = (3, 2) and (2, 3) at a
+    ragged batch of 101; the shards' channels summed mod 2^32 (limbs) or
+    stacked (slots) on the card, then grid 3: equal to the unsplit K4 step
+    and its plain version."""
+    import nufhe_tpu_torch as nft
+    from nufhe_tpu_torch.numeric import wrap_i32
+    from nufhe_tpu_torch.ops import lanes_step as k4
+    shapes = [(2, 2, TIMING_BATCH, tp)] + [
+        (mask1, l, 101, nft.NuFHEParameters(
+            tlwe_mask_size=mask1 - 1, bs_decomp_length=l).tgsw_params)
+        for mask1, l in VARIANT_SHAPES]
+    for mask1, l, b, tgsw in shapes:
+        kw = dict(offset=int(tgsw.offset), log2_base=tgsw.bs_log2_base)
+        acc_q = random_acc(rng, b, dev, mask1).reshape(b, -1)
+        p = random_powers(rng, (b,), dev)
+        for mode in ("NTT", "FFT"):
+            key_row = random_lanes_key(rng, 1, tgsw, dev, mode,
+                                       mask1)[0][0].contiguous()
+            whole = k4.lanes_step(acc_q, p, key_row, **kw)
+            plain = k4.lanes_step_plain(acc_q, p, key_row, **kw)
+            for split, ways in k4.KERNEL_SPLITS.items():
+                for n in ways:
+                    if n == 1 or (split == "limbs" and (mask1 * l) % n):
+                        continue
+                    axis = 1 if split == "limbs" else 0
+                    width = key_row.shape[axis] // n
+                    parts = [k4.lanes_mac_shard(
+                        acc_q, p, key_row.narrow(axis, s * width,
+                                                 width).contiguous(),
+                        shard=s, n_shards=n, mode=split, **kw)
+                        for s in range(n)]
+                    if split == "limbs":
+                        chan = wrap_i32(sum(c.to(torch.int64) for c in parts))
+                    else:
+                        chan = torch.stack(parts)
+                    got = k4.lanes_inverse(acc_q, chan)
+                    torch.cuda.synchronize()
+                    label = ("K4 (mask1, l) = (%d, %d) %s, %d-way %s split, "
+                             "shards combined on the card, batch %d"
+                             % (mask1, l, mode, n, split, b))
+                    record_err(results, "lanes_step",
+                               label + " vs unsplit K4",
+                               max_abs_err(got, whole))
+                    record_err(results, "lanes_step", label + " vs plain",
+                               max_abs_err(got, plain))
+                    del parts, chan, got
+
+
 def build_kernels():
     from nufhe_tpu_torch.kernels import build
     t0 = time.time()
@@ -1228,6 +1440,7 @@ def main():
     adder_crossover(nft, dev, rng, secret, vms["default NTT"], smi)
     print("containers, integer circuits and crossover: %.1f s"
           % (time.time() - t0))
+    multi_device(nft, dev, rng, secret, cloud, cloud_fft, nand, results, smi)
     for name, n in launches.items():
         if not n:
             raise AssertionError("kernel %s was not launched on its path" % name)

@@ -35,7 +35,7 @@ KERNELS = {
                   [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "lanes_step": ("lanes_step.cu", "lanes_step_launch",
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _I,
-                    _I, _I, _I, _P]),
+                    _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

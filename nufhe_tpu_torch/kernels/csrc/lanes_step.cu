@@ -51,6 +51,28 @@
 //      the lo channel's mod 2^32; the hi channel stays below G * 2^24 in
 //      absolute value (blind_rotate_body.cuh) and is exact in int32.
 //
+// Tensor parallelism (the JAX package's axis_name / slot_axis_name branches,
+// ops/flat_engine.py:215-306 and ops/rows_engine.py:869-954, which run in
+// XLA there): the step splits around a collective (torch.distributed, in
+// ops/lanes_step.py) between grid 2 and grid 3.  Grid 1 stays whole on every
+// shard (each decomposes the whole, replicated accumulator).  Grid 2 takes
+// shard s of a key row:
+//   limbs: the row's C-slice of GL whole g-blocks, (64, 64GL, Q), from
+//          g-block s*GL; it reads those bytes of each limbs row and writes
+//          partial channels, which the collective sums (lo wraps mod 2^32);
+//   slots: of S slot shards, the row's slots s*64/S .. + 64/S, (64/S, C, Q);
+//          it writes the channels of those slots, chan[b][ch][o][64/S][k],
+//          which the collective gathers shard-major.
+// Grid 3 reads the channels as slot_chunks shard-major chunks
+// [s][b][ch][o][64 / slot_chunks][k] (1 for an unsplit or limbs step: the
+// layout above), which is what an all_gather of the shards leaves: so the
+// slots collective moves (S-1)/S of the channels a rank and needs no
+// permute, where an all_reduce of zero-filled full buffers would move twice
+// that.  The split is a template argument of both grids (GL = G, G/2, G/4
+// where they divide G; S and slot_chunks 1, 2, 4, 8) so that the unsplit
+// step's indexing stays compile-time: with the slot count a run-time
+// argument, the unsplit MAC grid ran 3% ('NTT') to 13% ('FFT') slower.
+//
 // Bound: the MAC is 64 * C * Q int8 multiply-adds a sample (5.24 M exact at
 // (2, 2)), 1.72e11 operations at batch 2^14, 0.087 ms at the H100's dense
 // int8 tensor rate; the bytes (accumulator in and out, one key row) take
@@ -72,10 +94,10 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int w) {
   return w == 0 ? v.x : (w == 1 ? v.y : (w == 2 ? v.z : v.w));
 }
 
-template <int M, int D, bool kRounded>
+// the MAC grid's shapes for GL g-blocks of the key
+template <int M, int GL, bool kRounded>
 struct Lanes {
-  static constexpr int kG = M * D;
-  static constexpr int kC = kG * 64;                       // MAC inputs
+  static constexpr int kC = GL * 64;                       // MAC inputs
   static constexpr int kGroups = kRounded ? 4 : 5;
   static constexpr int kQ = kGroups * M * kR;              // MAC outputs
   static constexpr int kNCh = kRounded ? 1 : 2;            // channels
@@ -118,13 +140,17 @@ lanes_forward_kernel(const uint32_t* __restrict__ acc_q,
 }
 
 // Grid 2: per slot, (Q x C) . (C x samples) int8 on the tensor cores, the
-// groups recombined into the channels.
-template <int M, int D, bool kRounded>
-__global__ void __launch_bounds__(Lanes<M, D, kRounded>::kMacThreads)
+// groups recombined into the channels.  A block per slot of the key shard
+// (kLs = 64 / kSlotShards slots from shard * kLs); C is the shard's GL
+// g-blocks, from g-block shard * GL of each limbs row.
+template <int M, int D, int GL, int kSlotShards, bool kRounded>
+__global__ void __launch_bounds__(Lanes<M, GL, kRounded>::kMacThreads)
 lanes_mac_kernel(const int8_t* __restrict__ limbs,
                  const int8_t* __restrict__ key, uint32_t* __restrict__ chan,
-                 int batch) {
-  using S = Lanes<M, D, kRounded>;
+                 int batch, int shard) {
+  using S = Lanes<M, GL, kRounded>;
+  constexpr int kCF = M * D * 64;          // a limbs row: every g-block
+  constexpr int kLs = kL / kSlotShards;    // slots of the key shard
   constexpr int kC = S::kC;
   constexpr int kQ = S::kQ;
   constexpr int kCW = S::kCW;
@@ -134,7 +160,11 @@ lanes_mac_kernel(const int8_t* __restrict__ limbs,
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* key_t = smem;                  // [q][kStride]: bytes c of row q
   uint32_t* lhs = smem + kQ * kStride;     // [sample][kStride]
-  const int t = blockIdx.y;
+  // both 0 in an unsplit step, at compile time
+  const int c_first = GL == M * D ? 0 : shard * GL * 64;
+  const int slot_first = kSlotShards == 1 ? 0 : shard * kLs;
+  const int tl = blockIdx.y;               // slot of the key shard
+  const int t = slot_first + tl;           // slot of the limbs
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -145,7 +175,7 @@ lanes_mac_kernel(const int8_t* __restrict__ limbs,
   // 16qb..16qb+15 (4 loads of 16 bytes), 4 x 4 byte blocks transposed with
   // 8 byte permutes each; consecutive lanes take consecutive cq, so the 16
   // stores of a thread hit 32 banks across the warp
-  const int8_t* key_slot = key + (size_t)t * kC * kQ;
+  const int8_t* key_slot = key + (size_t)tl * kC * kQ;
   for (int task = tid; task < kCW * (kQ / 16); task += kThreads) {
     const int cq = task % kCW;
     const int qb = task / kCW;
@@ -183,7 +213,7 @@ lanes_mac_kernel(const int8_t* __restrict__ limbs,
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (m0 + m < batch)
         v = *reinterpret_cast<const uint4*>(
-            limbs + ((size_t)t * batch + m0 + m) * kC + 16 * c4);
+            limbs + ((size_t)t * batch + m0 + m) * kCF + c_first + 16 * c4);
       *reinterpret_cast<uint4*>(lhs + m * kStride + 4 * c4) = v;
     }
     __syncthreads();
@@ -230,31 +260,34 @@ lanes_mac_kernel(const int8_t* __restrict__ limbs,
                             ((uint32_t)d[a + 1][nt][e] << 8) +
                             ((uint32_t)d[a + 2][nt][e] << 16) +
                             ((uint32_t)d[a + 3][nt][e] << 24);
-        uint32_t* dst = chan + (size_t)m * S::kNCh * M * kL * kR +
-                        ((size_t)o * kL + t) * kR + k;
+        uint32_t* dst = chan + (size_t)m * S::kNCh * M * kLs * kR +
+                        ((size_t)o * kLs + tl) * kR + k;
         dst[0] = lo;
-        if (!kRounded) dst[M * kL * kR] = (uint32_t)d[0][nt][e];
+        if (!kRounded) dst[M * kLs * kR] = (uint32_t)d[0][nt][e];
       }
   }
 }
 
 // Grid 3: inverse transform of the channels, fold, normalise, accumulate.
-template <int M, bool kExact>
+// The channels lie as kChunks shard-major chunks of kL / kChunks slots.
+template <int M, bool kExact, int kChunks>
 __global__ void __launch_bounds__(32 * M * (kExact ? 2 : 1))
 lanes_inverse_kernel(const uint32_t* __restrict__ acc_in,
                      uint32_t* __restrict__ acc_out,
-                     const uint32_t* __restrict__ chan) {
+                     const uint32_t* __restrict__ chan, int batch) {
   constexpr int kNCh = kExact ? 2 : 1;
+  constexpr int kLs = kL / kChunks;
   __shared__ uint32_t hi_s[kExact ? M * kN : 1];
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;          // ch * M + o
   const int o = warp % M;
   const bool hi_warp = warp >= M;
-  const uint32_t* src = chan + ((size_t)b * kNCh * M + warp) * kL * kR;
   uint32_t x[kL];
 #pragma unroll
-  for (int r = 0; r < kL; ++r) x[r] = src[r * kR + lane];
+  for (int r = 0; r < kL; ++r)
+    x[r] = chan[(((size_t)(r / kLs) * batch + b) * kNCh * M + warp) * kLs * kR
+                + (r % kLs) * kR + lane];
   inverse_fold(x, lane);   // bit-reversed slots in; x[j] at q-layout j*32+i
   if (kExact) {
     if (hi_warp) {
@@ -275,12 +308,107 @@ lanes_inverse_kernel(const uint32_t* __restrict__ acc_in,
   }
 }
 
+template <int M, int D, int GL, int kSlotShards, bool kRounded>
+cudaError_t launch_mac(const int8_t* limbs, const int8_t* key, uint32_t* chan,
+                       int batch, int shard, cudaStream_t stream) {
+  using S = Lanes<M, GL, kRounded>;
+  constexpr int kLs = kL / kSlotShards;
+  auto kernel = lanes_mac_kernel<M, D, GL, kSlotShards, kRounded>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kMacSmem);
+  if (err != cudaSuccess) return err;
+  // as many sample-tile columns a slot as fill the card in one wave: each
+  // block transposes its key slot once and walks tiles with that stride
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, S::kMacThreads, S::kMacSmem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (batch + kTM - 1) / kTM;
+  int cols = sms * (per_sm > 0 ? per_sm : 1) / kLs;
+  cols = cols < 1 ? 1 : (cols < n_tiles ? cols : n_tiles);
+  kernel<<<dim3(cols, kLs), S::kMacThreads, S::kMacSmem, stream>>>(
+      limbs, key, chan, batch, shard);
+  return cudaGetLastError();
+}
+
+// the MAC grid on shard `shard` of a split in GL = g_local of the G g-blocks
+// (G, G/2, G/4 where they divide G) or in slot_shards slot ranges (1, 2, 4,
+// 8); not both
 template <int M, int D, bool kRounded>
+cudaError_t mac_shard(const int8_t* limbs, const int8_t* key, uint32_t* chan,
+                      int batch, int g_local, int slot_shards, int shard,
+                      cudaStream_t stream) {
+  constexpr int kG = M * D;
+  if (slot_shards == 1) {
+    switch (g_local) {
+      case kG:
+        return launch_mac<M, D, kG, 1, kRounded>(limbs, key, chan, batch,
+                                                 shard, stream);
+      case kG / 2:
+        if constexpr (kG % 2 == 0)
+          return launch_mac<M, D, kG / 2, 1, kRounded>(limbs, key, chan,
+                                                       batch, shard, stream);
+        break;
+      case kG / 4:
+        if constexpr (kG % 4 == 0)
+          return launch_mac<M, D, kG / 4, 1, kRounded>(limbs, key, chan,
+                                                       batch, shard, stream);
+        break;
+    }
+  } else if (g_local == kG) {
+    switch (slot_shards) {
+      case 2:
+        return launch_mac<M, D, kG, 2, kRounded>(limbs, key, chan, batch,
+                                                 shard, stream);
+      case 4:
+        return launch_mac<M, D, kG, 4, kRounded>(limbs, key, chan, batch,
+                                                 shard, stream);
+      case 8:
+        return launch_mac<M, D, kG, 8, kRounded>(limbs, key, chan, batch,
+                                                 shard, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int M, bool kExact>
+cudaError_t inverse_chunks(const uint32_t* acc_in, uint32_t* acc_out,
+                           const uint32_t* chan, int batch, int slot_chunks,
+                           cudaStream_t stream) {
+  constexpr int kThreads = 32 * M * (kExact ? 2 : 1);
+  switch (slot_chunks) {
+    case 1:
+      lanes_inverse_kernel<M, kExact, 1><<<batch, kThreads, 0, stream>>>(
+          acc_in, acc_out, chan, batch);
+      break;
+    case 2:
+      lanes_inverse_kernel<M, kExact, 2><<<batch, kThreads, 0, stream>>>(
+          acc_in, acc_out, chan, batch);
+      break;
+    case 4:
+      lanes_inverse_kernel<M, kExact, 4><<<batch, kThreads, 0, stream>>>(
+          acc_in, acc_out, chan, batch);
+      break;
+    case 8:
+      lanes_inverse_kernel<M, kExact, 8><<<batch, kThreads, 0, stream>>>(
+          acc_in, acc_out, chan, batch);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <int M, int D>
 cudaError_t launch(const uint32_t* acc_in, uint32_t* acc_out,
                    const int32_t* powers, const int8_t* key, int8_t* limbs,
                    uint32_t* chan, int batch, uint32_t offset, int log2_base,
-                   int grids, cudaStream_t stream) {
-  using S = Lanes<M, D, kRounded>;
+                   int rounded, int grids, int g_local, int slot_shards,
+                   int shard, cudaStream_t stream) {
   cudaError_t err;
   if (grids & 1) {
     lanes_forward_kernel<M, D><<<batch, 32 * M * D, 0, stream>>>(
@@ -289,66 +417,41 @@ cudaError_t launch(const uint32_t* acc_in, uint32_t* acc_out,
     if (err != cudaSuccess) return err;
   }
   if (grids & 2) {
-    auto kernel = lanes_mac_kernel<M, D, kRounded>;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kMacSmem);
-    if (err != cudaSuccess) return err;
-    // as many sample-tile columns a slot as fill the card in one wave:
-    // each block transposes its key slot once and walks tiles with that
-    // stride
-    int dev = 0, sms = 0, per_sm = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, S::kMacThreads, S::kMacSmem);
-    if (err != cudaSuccess) return err;
-    const int n_tiles = (batch + kTM - 1) / kTM;
-    int cols = sms * (per_sm > 0 ? per_sm : 1) / kL;
-    cols = cols < 1 ? 1 : (cols < n_tiles ? cols : n_tiles);
-    kernel<<<dim3(cols, kL), S::kMacThreads, S::kMacSmem, stream>>>(
-        limbs, key, chan, batch);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (grids & 4) {
-    lanes_inverse_kernel<M, !kRounded>
-        <<<batch, 32 * M * S::kNCh, 0, stream>>>(acc_in, acc_out, chan);
-    err = cudaGetLastError();
+    err = rounded ? mac_shard<M, D, true>(limbs, key, chan, batch, g_local,
+                                          slot_shards, shard, stream)
+                  : mac_shard<M, D, false>(limbs, key, chan, batch, g_local,
+                                           slot_shards, shard, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-template <int M, int D>
-cudaError_t launch_form(const uint32_t* acc_in, uint32_t* acc_out,
-                        const int32_t* powers, const int8_t* key,
-                        int8_t* limbs, uint32_t* chan, int batch,
-                        uint32_t offset, int log2_base, int rounded, int grids,
-                        cudaStream_t stream) {
-  return rounded
-      ? launch<M, D, true>(acc_in, acc_out, powers, key, limbs, chan, batch,
-                           offset, log2_base, grids, stream)
-      : launch<M, D, false>(acc_in, acc_out, powers, key, limbs, chan, batch,
-                            offset, log2_base, grids, stream);
-}
-
 }  // namespace
 
-// limbs: 64 * batch * 64G int8 of scratch; chan: batch * (2 or 1) * M * 64
-// * 32 int32 of scratch.  grids: a bit mask of the grids to run (1
-// forward, 2 MAC, 4 inverse; 7 is the step), so that they can be timed
-// apart.
+// limbs: 64 * batch * 64G int8 of scratch; chan: batch * (2 or 1) * M *
+// (64 / slot_shards) * 32 int32 of scratch, or (grid 3 alone) slot_chunks
+// such chunks of 64 / slot_chunks slots.  grids: a bit mask of the grids to
+// run (1 forward, 2 MAC, 4 inverse; 7 is the step), so that they can be
+// timed apart and a tensor-parallel step can run a collective between grid 2
+// and grid 3.  The MAC grid runs shard `shard` of a split of the key row in
+// g_local g-blocks (the key is (64, 64 g_local, Q)) or in slot_shards slot
+// ranges (the key is (64 / slot_shards, 64G, Q)); an unsplit step is
+// g_local = G, slot_shards = 1, shard = 0, slot_chunks = 1.  Grid 3 alone
+// needs only mask1 and rounded (decomp may be 0).
 extern "C" int lanes_step_launch(const void* acc_in, void* acc_out,
                                  const void* powers, const void* key,
                                  void* limbs, void* chan, int batch,
                                  int mask1, int decomp, unsigned int offset,
                                  int log2_base, int rounded, int grids,
-                                 int device, void* stream) {
+                                 int g_local, int slot_shards, int shard,
+                                 int slot_chunks, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (batch <= 0) return (int)cudaGetLastError();
+  if ((grids & 2) && (shard < 0 || g_local <= 0 || slot_shards <= 0 ||
+                      (mask1 * decomp) % g_local ||
+                      shard >= mask1 * decomp / g_local * slot_shards))
+    return (int)cudaErrorInvalidValue;
   const auto* in = (const uint32_t*)acc_in;
   auto* out = (uint32_t*)acc_out;
   const auto* pw = (const int32_t*)powers;
@@ -356,16 +459,32 @@ extern "C" int lanes_step_launch(const void* acc_in, void* acc_out,
   auto* lb = (int8_t*)limbs;
   auto* ch = (uint32_t*)chan;
   const auto s = (cudaStream_t)stream;
-  if (mask1 == 2 && decomp == 2)
-    err = launch_form<2, 2>(in, out, pw, k, lb, ch, batch, offset, log2_base,
-                            rounded, grids, s);
-  else if (mask1 == 3 && decomp == 2)
-    err = launch_form<3, 2>(in, out, pw, k, lb, ch, batch, offset, log2_base,
-                            rounded, grids, s);
-  else if (mask1 == 2 && decomp == 3)
-    err = launch_form<2, 3>(in, out, pw, k, lb, ch, batch, offset, log2_base,
-                            rounded, grids, s);
-  else
-    err = cudaErrorInvalidValue;
+  if (grids & 3) {
+    if (mask1 == 2 && decomp == 2)
+      err = launch<2, 2>(in, out, pw, k, lb, ch, batch, offset, log2_base,
+                         rounded, grids, g_local, slot_shards, shard,
+                         s);
+    else if (mask1 == 3 && decomp == 2)
+      err = launch<3, 2>(in, out, pw, k, lb, ch, batch, offset, log2_base,
+                         rounded, grids, g_local, slot_shards, shard,
+                         s);
+    else if (mask1 == 2 && decomp == 3)
+      err = launch<2, 3>(in, out, pw, k, lb, ch, batch, offset, log2_base,
+                         rounded, grids, g_local, slot_shards, shard,
+                         s);
+    else
+      err = cudaErrorInvalidValue;
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (grids & 4) {
+    if (mask1 == 2)
+      err = rounded ? inverse_chunks<2, false>(in, out, ch, batch, slot_chunks, s)
+                    : inverse_chunks<2, true>(in, out, ch, batch, slot_chunks, s);
+    else if (mask1 == 3)
+      err = rounded ? inverse_chunks<3, false>(in, out, ch, batch, slot_chunks, s)
+                    : inverse_chunks<3, true>(in, out, ch, batch, slot_chunks, s);
+    else
+      err = cudaErrorInvalidValue;
+  }
   return (int)err;
 }

@@ -9,6 +9,12 @@ modes.  The key's form selects the blind rotation's engine:
   the JAX package's ``flat_engine`` path, ``bootstrap.py:249-262``): the
   accumulator in q-layout and n launches of the lanes step K4;
   ``chunk_steps`` does not apply.
+
+Tensor parallelism (the JAX package's ``axis_name``/``slot_axis_name``,
+``bootstrap.py:124-173``) runs the lanes engine with each step split around
+a collective (``ops/lanes_step.lanes_step_sharded``): ``group`` splits the
+key's g-blocks over the process group (``mode='limbs'``), ``slot_group`` its
+slots (``mode='slots'``).  The keyswitch stays local.
 """
 
 import torch
@@ -50,7 +56,7 @@ def round_phase_coarse(bara, bits: int, n_poly: int):
 
 
 def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
-                 exact=True):
+                 exact=True, group=None, slot_group=None):
     """ACC <- BK_i (x) [(X^{bara_i}-1) ACC] + ACC over all n key bits.
 
     :param accum_a: (B, mask_size+1, N) int32.
@@ -61,9 +67,25 @@ def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
     :param bara: (B, n) int32 in [0, 2N).
     :param chunk_steps: steps per K3 launch; 1, or a chunk that does not
         divide n, runs one K1 launch a step.  The lanes engine ignores it.
+    :param group: limbs tensor parallelism: ``bk_dev`` is this rank's
+        C-slice of whole g-blocks of the lanes key (n, L, C/size, Q), and each
+        step's channels are summed over the process group.
+    :param slot_group: slots tensor parallelism: ``bk_dev`` is this rank's
+        slot slice (n, L/size, C, Q); each step's channels are gathered.
     """
     n = bara.shape[-1]
     lanes_key = bk_dev.dtype == torch.int8
+    if group is not None and slot_group is not None:
+        raise ValueError("group (limbs) and slot_group (slots) exclude each "
+                         "other")
+    tp_group, mode = (group, 'limbs') if slot_group is None \
+        else (slot_group, 'slots')
+    if tp_group is not None:
+        if not lanes_key:
+            raise ValueError("tensor parallelism (mode=%r) takes the lanes "
+                             "engine's int8 key, not the rows key" % mode)
+        return _blind_rotate_tp(accum_a, bk_dev, bara, tgsw_params, exact,
+                                tp_group, mode)
     if lanes_key:
         rounded = lanes.check_key(bk_dev, (n,), "blind_rotate")
     else:
@@ -90,13 +112,35 @@ def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
     return acc
 
 
+def _blind_rotate_tp(accum_a, bk_shard, bara, tgsw_params, exact, group,
+                     mode):
+    """The tensor-parallel blind rotation: n steps of
+    ``lanes_step.lanes_step_sharded`` on this rank's key shard."""
+    import torch.distributed as dist
+    n = bara.shape[-1]
+    shard, n_shards = dist.get_rank(group), dist.get_world_size(group)
+    rounded = lanes.check_key(bk_shard, (n,), "blind_rotate", mode, n_shards)
+    if rounded == exact:
+        raise ValueError("the key's form does not match the %s engine"
+                         % ("exact" if exact else "rounded-key"))
+    bara_t = bara.t().contiguous()
+    acc_q = fe.q_from_n(accum_a).reshape(accum_a.shape[0], -1).contiguous()
+    for i in range(n):
+        acc_q = lanes.lanes_step_sharded(
+            acc_q, bara_t[i], bk_shard[i], shard=shard, n_shards=n_shards,
+            mode=mode, group=group, offset=int(tgsw_params.offset),
+            log2_base=tgsw_params.bs_log2_base)
+    return fe.n_from_q(acc_q.reshape(accum_a.shape))
+
+
 def bootstrap_device(lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, mu,
                      tgsw_params, no_keyswitch=False, chunk_steps=1,
-                     coarse_phase_bits=0):
+                     coarse_phase_bits=0, group=None, slot_group=None):
     """Full gate bootstrap: LWE(mu) if phase > 0 else LWE(-mu), fresh noise.
     Reference: ``nufhe/bootstrap.py:154-229``.  The engine mode comes from
     ``tgsw_params.tlwe_params.transform_type``, the engine (rows or lanes)
-    from the key's form (:func:`blind_rotate`).
+    from the key's form (:func:`blind_rotate`); ``group``/``slot_group``
+    split the lanes engine's steps over a process group (:func:`blind_rotate`).
 
     :param lwe_a: (B, n_in) int32; ``lwe_b``: (B,) int32.
     :returns: (a, b, cv) in the keyswitched (or extracted) LWE space.
@@ -119,7 +163,8 @@ def bootstrap_device(lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, mu,
 
     accum, _ = dtlwe.tlwe_noiseless_trivial(testvect, mask_size)
     accum = blind_rotate(accum, bk_dev, bara, tgsw_params,
-                         chunk_steps=chunk_steps, exact=exact)
+                         chunk_steps=chunk_steps, exact=exact, group=group,
+                         slot_group=slot_group)
     ex_a, ex_b = dtlwe.tlwe_extract_lwe_samples(accum)
 
     # fresh-noise estimate through the blind rotation (CGGI16 bound)

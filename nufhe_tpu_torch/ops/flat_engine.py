@@ -15,6 +15,13 @@ Its contract, kept from the JAX package:
   (exact: groups B, A0..A3) or 4*O*R (rounded key: A0..A3, no B channel);
   the engine reads the form off Q.
 
+Tensor parallelism (the JAX package's ``axis_name``, and the rows
+engine's ``slot_axis_name``): :func:`mac_channels` is the MAC up to its two
+channels, on a C-slice of whole g-blocks or a slot slice of the key;
+:func:`sum_channels` and :func:`gather_slots` combine the shards' channels
+over a ``torch.distributed`` process group; :func:`inverse_channels` is the
+rest of the product.
+
 The JAX package writes each stage as lane rolls and selects for the TPU;
 here they are index tables and gathers over the same values.  The MAC runs
 in float64, which is exact (each product is at most 2^14 in absolute
@@ -120,7 +127,90 @@ def key_groups(q_size, mask1):
     return groups
 
 
-def transformed_mac_flat(digits, rhs_row, *, mask1, g_total):
+def mac_channels(digits, rhs_row, *, mask1, g_total, slot_start=0):
+    """The forward transform, the per-slot MAC against the int8 key operand
+    and the two channels, before the inverse: what K4's grids 1 and 2 leave
+    in device memory.
+
+    :param digits: (rows, g_total*1024) int32 q-layout, small (|.| <= 2^9
+        for the limbs to fit int8).
+    :param rhs_row: (L_local, C, Q) int8 key row, or (rows, L_local, C, Q)
+        with one row for each sample; C = g_total*2R.  ``L_local`` slots
+        from ``slot_start`` (a slots shard), all 64 by default.
+    :returns: (rows, n_ch, mask1, L_local, R) int32, K4's channel layout
+        [b][ch][o][t][k]: ch 0 is lo = A0 + A1<<8 + A2<<16 + A3<<24 mod
+        2^32, ch 1 (exact form only) is hi = B.
+    """
+    rows = digits.shape[0]
+    n_groups = key_groups(rhs_row.shape[-1], mask1)
+    l_local = rhs_row.shape[-3]
+    xt = dif_forward_q(digits, n_poly=g_total).reshape(rows, g_total, L, R)
+    xt = xt[:, :, slot_start:slot_start + l_local]
+    a0 = ((xt + 128) & 255) - 128
+    a1 = (xt - a0) >> 8
+    # lhs[b, t, c], c = g*2R + i*R + u
+    lhs = torch.stack([a0, a1], dim=2).permute(0, 3, 1, 2, 4)
+    lhs = lhs.reshape(rows, l_local, g_total * tf.ACC_LIMBS * R).to(
+        torch.float64)
+    rhs = rhs_row.to(torch.float64)
+    if rhs.dim() == 3:
+        out = torch.einsum('btc,tcq->btq', lhs, rhs)
+    else:
+        out = torch.einsum('btc,btcq->btq', lhs, rhs)
+    ps = out.to(torch.int64).reshape(rows, l_local, n_groups, mask1, R)
+    first = 1 if n_groups == tf.SHIFT_GROUPS else 0   # exact: [B, A0..A3]
+    lo = (ps[:, :, first] + (ps[:, :, first + 1] << 8)
+          + (ps[:, :, first + 2] << 16) + (ps[:, :, first + 3] << 24))
+    chans = [lo] if first == 0 else [lo, ps[:, :, 0]]
+    return wrap_i32(torch.stack(chans, dim=1).permute(0, 1, 3, 2, 4))
+
+
+def inverse_channels(chan, mask1):
+    """The inverse of the channels and the normalisation: (rows, n_ch,
+    mask1, L, R) int32 -> (rows, mask1*1024) int32 q-layout product."""
+    rows = chan.shape[0]
+    inv = [dit_inverse_q(chan[:, ch].reshape(rows, mask1 * 2 * N),
+                         n_poly=mask1) for ch in range(chan.shape[1])]
+    return normalize_dual(inv[0], inv[1] if len(inv) > 1 else None)
+
+
+def sum_channels(chan, group):
+    """Limbs tensor parallelism: the channels summed over ``group``, in
+    place.  The lo channel's sum wraps mod 2^32 in int32, as the JAX
+    package's ``psum`` does; the hi channel's stays exact (below G * 2^24 in
+    absolute value)."""
+    import torch.distributed as dist
+    dist.all_reduce(chan, op=dist.ReduceOp.SUM, group=group)
+    return chan
+
+
+def gather_slots(chan, group):
+    """Slots tensor parallelism: every shard's channels over ``group``, as
+    they lie: (n_shards, rows, n_ch, mask1, L_local, R), shard s holding
+    slots s*L_local ..  K4's inverse grid reads this layout;
+    :func:`slots_from_gathered` gives the plain order."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    out = torch.empty((n * chan.shape[0],) + tuple(chan.shape[1:]),
+                      dtype=chan.dtype, device=chan.device)
+    # all_gather_single is the newer name; all_gather_into_tensor, the older
+    # one, is deprecated where both exist
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, chan.contiguous(), group=group)
+    return out.reshape((n,) + tuple(chan.shape))
+
+
+def slots_from_gathered(gathered):
+    """(n_shards, rows, n_ch, mask1, L_local, R) -> (rows, n_ch, mask1,
+    n_shards*L_local, R)."""
+    n, rows, n_ch, mask1, l_local, r = gathered.shape
+    return gathered.permute(1, 2, 3, 0, 4, 5).reshape(
+        rows, n_ch, mask1, n * l_local, r)
+
+
+def transformed_mac_flat(digits, rhs_row, *, mask1, g_total, group=None,
+                         slot_group=None):
     """sum_g digits_g * key_g: forward transform, per-slot MAC against the
     int8 key operand, the two channels, inverse, normalisation.
 
@@ -128,58 +218,64 @@ def transformed_mac_flat(digits, rhs_row, *, mask1, g_total):
         for the limbs to fit int8).
     :param rhs_row: (L, C, Q) int8 key row, or (rows, L, C, Q) with one
         row for each sample.
+    :param group: limbs tensor parallelism (the JAX package's
+        ``axis_name``): ``digits`` and ``rhs_row`` hold this rank's g-blocks,
+        and the channels are summed over the process group before the
+        inverse.
+    :param slot_group: slots tensor parallelism (``slot_axis_name``):
+        ``rhs_row`` holds this rank's contiguous slot slice of the key, and
+        the channels are gathered over the group before the inverse.
     :returns: (rows, mask1*1024) int32 q-layout product mod 2^32.
     """
-    rows = digits.shape[0]
-    n_groups = key_groups(rhs_row.shape[-1], mask1)
-    xt = dif_forward_q(digits, n_poly=g_total).reshape(rows, g_total, L, R)
-    a0 = ((xt + 128) & 255) - 128
-    a1 = (xt - a0) >> 8
-    # lhs[b, t, c], c = g*2R + i*R + u
-    lhs = torch.stack([a0, a1], dim=2).permute(0, 3, 1, 2, 4)
-    lhs = lhs.reshape(rows, L, g_total * tf.ACC_LIMBS * R).to(torch.float64)
-    rhs = rhs_row.to(torch.float64)
-    if rhs.dim() == 3:
-        out = torch.einsum('btc,tcq->btq', lhs, rhs)
-    else:
-        out = torch.einsum('btc,btcq->btq', lhs, rhs)
-    ps = out.to(torch.int64).reshape(rows, L, n_groups, mask1, R)
-    if n_groups == tf.SHIFT_GROUPS:
-        lo = (ps[:, :, 1] + (ps[:, :, 2] << 8) + (ps[:, :, 3] << 16)
-              + (ps[:, :, 4] << 24))
-        hi = ps[:, :, 0]
-    else:
-        lo = (ps[:, :, 0] + (ps[:, :, 1] << 8) + (ps[:, :, 2] << 16)
-              + (ps[:, :, 3] << 24))
-        hi = None
-
-    def channel(x):          # (rows, L, O, R) -> (rows, O*2048) int32
-        return wrap_i32(x.permute(0, 2, 1, 3).reshape(rows, mask1 * 2 * N))
-
-    inv_lo = dit_inverse_q(channel(lo), n_poly=mask1)
-    inv_hi = None if hi is None else dit_inverse_q(channel(hi), n_poly=mask1)
-    return normalize_dual(inv_lo, inv_hi)
+    if group is not None and slot_group is not None:
+        raise ValueError("group (limbs) and slot_group (slots) exclude each "
+                         "other")
+    slot_start = 0
+    if slot_group is not None:
+        import torch.distributed as dist
+        slot_start = dist.get_rank(slot_group) * rhs_row.shape[-3]
+    chan = mac_channels(digits, rhs_row, mask1=mask1, g_total=g_total,
+                        slot_start=slot_start)
+    if group is not None:
+        chan = sum_channels(chan, group)
+    if slot_group is not None:
+        chan = slots_from_gathered(gather_slots(chan, slot_group))
+    return inverse_channels(chan, mask1)
 
 
 def external_mul_flat(sample_q, rhs_row, *, mask1, decomp_length, log2_base,
-                      offset):
+                      offset, group=None, slot_group=None):
     """BK_row (x) decomp(sample): the transformed external product.
 
     :param sample_q: (rows, mask1*1024) int32 q-layout TLWE sample.
-    :param rhs_row: (L, G*2R, Q) int8 from ``ops/transform.build_mac_rhs``.
+    :param rhs_row: (L, G*2R, Q) int8 from ``ops/transform.build_mac_rhs``;
+        under ``group`` this rank's contiguous g-block C-slice (L,
+        G_local*2R, Q), under ``slot_group`` its slot slice (L_local, C, Q).
+    :param group, slot_group: tensor parallelism, as in
+        :func:`transformed_mac_flat`.  Under ``group`` each rank decomposes
+        the whole (replicated) sample and keeps its digit slice, from g-block
+        rank * G_local.
     :returns: (rows, mask1*1024) int32 q-layout.
     """
     digits = gadget_decomp_flat(sample_q, mask1, decomp_length, log2_base,
                                 offset)
-    return transformed_mac_flat(digits, rhs_row, mask1=mask1,
-                                g_total=mask1 * decomp_length)
+    g_total = mask1 * decomp_length
+    if group is not None:
+        import torch.distributed as dist
+        g_total = rhs_row.shape[-2] // (tf.ACC_LIMBS * R)
+        start = dist.get_rank(group) * g_total * N
+        digits = digits[:, start:start + g_total * N]
+    return transformed_mac_flat(digits, rhs_row, mask1=mask1, g_total=g_total,
+                                group=group, slot_group=slot_group)
 
 
 def external_step(acc_q, p, rhs_row, *, mask1, decomp_length, log2_base,
-                  offset):
-    """One CMUX step: ACC + BK_row (x) decomp((X^p - 1) ACC), mod 2^32."""
+                  offset, group=None, slot_group=None):
+    """One CMUX step: ACC + BK_row (x) decomp((X^p - 1) ACC), mod 2^32;
+    ``group``/``slot_group`` as in :func:`external_mul_flat`."""
     rot = rotate_q(acc_q, p, minus_one=True)
     delta = external_mul_flat(rot, rhs_row, mask1=mask1,
                               decomp_length=decomp_length,
-                              log2_base=log2_base, offset=offset)
+                              log2_base=log2_base, offset=offset, group=group,
+                              slot_group=slot_group)
     return wrap_i32(acc_q.to(torch.int64) + delta.to(torch.int64))

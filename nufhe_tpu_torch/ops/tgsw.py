@@ -89,13 +89,19 @@ def prepare_bootstrap_key_device(bk_coeff, device, chunk: int = 50,
 
 
 def tgsw_transformed_external_mul(accum_a, bk_dev, bk_row_idx, offset,
-                                  decomp_length: int, log2_base: int):
+                                  decomp_length: int, log2_base: int,
+                                  group=None):
     """One external product, BK_row (x) decomp(accum), through the lanes
     engine (``ops/flat_engine.external_mul_flat``).
     Reference: ``nufhe/tgsw_gpu.py:110-169``.
 
     :param accum_a: (batch..., mask_size+1, N) int32.
-    :param bk_dev: output of :func:`prepare_bootstrap_key_device`.
+    :param bk_dev: output of :func:`prepare_bootstrap_key_device`; under
+        ``group``, this rank's C-slice of whole g-blocks of it.
+    :param group: a ``torch.distributed`` process group for the
+        tensor-parallel external product (the JAX package's ``axis_name``):
+        each rank MACs its g-block slice and the channels are summed over
+        the group before the inverse transform.
     :returns: (batch..., mask_size+1, N) int32.
     """
     mask1 = accum_a.shape[-2]
@@ -103,5 +109,6 @@ def tgsw_transformed_external_mul(accum_a, bk_dev, bk_row_idx, offset,
     sample_q = fe.q_from_n(accum_a).reshape(-1, mask1 * fe.N)
     out = fe.external_mul_flat(sample_q, bk_dev[int(bk_row_idx)], mask1=mask1,
                                decomp_length=decomp_length,
-                               log2_base=log2_base, offset=int(offset))
+                               log2_base=log2_base, offset=int(offset),
+                               group=group)
     return fe.n_from_q(out.reshape(lead + (mask1, fe.N)))
