@@ -23,7 +23,9 @@ and prints no result line):
    K1 launches on the same coefficient key; then K1, K3 and K4 at the
    non-default (mask1, l) = (3, 2) and (2, 3), both key forms, at batch 64
    and 101, each against its plain version, K3 against its chunk of K1
-   launches and K4's steps against as many K1 launches;
+   launches and K4's steps against as many K1 launches; K5 (the exact
+   step's stage parts, ``ops/step_parts``): every part against its plain
+   version at batch 256 and 101, its FULL step also against K1;
 4. keygen at the default parameters (n=500, N=1024): ``make_key_pair``
    with its default placement, on the card, and with ``on_device=False``,
    on the host, from one seed, each synchronised, the card's split by a
@@ -31,10 +33,14 @@ and prints no result line):
    the tables (``bk_coeff``, ``ks_a``, ``ks_b``), the compact form and the
    containers equal bit for bit; then, in both engines ('FFT' keys built
    from each keygen's arrays), each key prepared on the card (the card-made
-   key's transform and limb split there; the host-made key's in numpy) and
-   timed part by part: the rows key, the keyswitch ``ab_limbs`` and the
+   key's transform and limb split there; the host-made key's on the host)
+   and timed part by part: the rows key, the keyswitch ``ab_limbs`` and the
    lanes key of the card-made key equal the host path's, and its
-   ``ab_limbs`` the numpy packing's;
+   ``ab_limbs`` the numpy packing's; ``native_keygen``: the host C++
+   transform and limb split (``nufhe_tpu_torch/native.py``) must load,
+   and the host keygen's limbs, forward transform and rows key through it
+   equal the numpy oracle's and the card-made key's, each timed beside
+   numpy;
 5. the gate paths at the default parameters, from the card-made keys, on
    4096 random inputs, through the entry points, each with the launch
    counts set to 0 just before the gate and read just after:
@@ -51,7 +57,13 @@ and prints no result line):
    each decrypts to its truth table and prints its largest phase error;
    the two NANDs of the default path and of the lanes path also equal the
    same gate run on the CPU through the plain versions on 8 of the inputs,
-   bit for bit;
+   bit for bit; ``oracle``: 8 NAND inputs at n=500 on the default, the
+   per-step and the lanes path, both modes, equal in a and b, bit for bit,
+   to the numpy oracle ``ref/bootstrap_ref.bootstrap`` (which shares no
+   code with the kernels' paths), cv within ``utils.errors_allclose``; the
+   oracle runs in a worker process started at the top of ``main`` (host
+   keygen of the same seed, the encryptions, both modes) and is joined
+   after phase 8, so that it overlaps the card phases;
    the host-made keys' NAND on the default and the lanes path, both
    engines, equals the card-made keys' bit for bit; then NAND at each of
    the JAX package's one-knob variants (``tlwe_mask_size=2``,
@@ -106,7 +118,16 @@ and prints no result line):
    kernel's ms per launch beside its plain version (whose output it
    equals there too), a PyTorch library call where one computes the same
    function, and its bound; K4's three grids timed apart;
-11. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
+11. ``step_parts``: ``tools/microbench_torch.py parts`` at 2^14 with the
+   launch counts set to 0 just before it and read just after (K5's
+   launches in the ``kernels`` line), then every part on the same inputs
+   against its plain version, and each part's ms, plain ms and bound as
+   one JSON line; ``microbench``: its
+   ``rotation`` (100 K1 launches against K3 at chunks 10, 25 and 50, both
+   engines, each equal to the per-step rotation) and ``keyswitch`` at
+   2^14, as one JSON line; ``examples``: each ``examples/*_torch.py`` in a
+   process of its own on the card, exit 0 and its OK line;
+12. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The bound of a kernel is the larger of its bytes (each input read once,
@@ -120,12 +141,14 @@ counted at 67e12/s, its float32 rate there, the highest it states for
 such units (its tensor-core form's int8 operations are printed beside
 it: they take longer).  A kernel's ``launches`` in the JSON line is its
 count in the gate of the path that runs it (K1: the per-step path; K2
-and K3: the default path; K4: the lanes path).  The collectives between
+and K3: the default path; K4: the lanes path); K5's is its count on the
+microbenchmark's path (``parts``), which is where it runs.  The collectives between
 the grids of a tensor-parallel step are counted apart (``lanes_step.
 collectives``).
 """
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -143,7 +166,13 @@ TIMING_BATCH = 1 << 14
 N_LWE = 500                # n: the blind rotation's steps
 CHUNK = 50                 # the default path's steps per K3 launch
 KERNEL_NAMES = ("cmux_step", "keyswitch", "blind_rotate_chunk",
-                "lanes_step")
+                "lanes_step", "step_parts")
+# K5 runs on the microbenchmark's path, not on a gate's
+GATE_KERNELS = KERNEL_NAMES[:4]
+ORACLE_INPUTS = 8          # inputs of the n=500 bootstrap held to the oracle
+EXAMPLES = ("gate_nand_torch.py", "gate_nand_low_level_torch.py",
+            "integer_adder_torch.py", "serialization_torch.py",
+            "transform_modes_torch.py")
 # the kernels' non-default (mask1, l): tlwe_mask_size=2, bs_decomp_length=3
 VARIANT_SHAPES = ((3, 2), (2, 3))
 # the gates at the JAX package's one-knob variant parameters run at this
@@ -167,15 +196,8 @@ def nvidia_smi_line():
 
 def cuda_ms(fn, reps):
     """Mean ms per call of ``fn`` on the card, by CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from nufhe_tpu_torch.utils.profiling import time_ms
+    return time_ms(fn, reps)
 
 
 def bound_ms(n_bytes, n_ops, ops_per_s=OPS_PER_S):
@@ -205,9 +227,11 @@ def max_abs_err(x, y):
 
 
 def counters():
-    from nufhe_tpu_torch.ops import blind_rotate, cmux, keyswitch, lanes_step
+    from nufhe_tpu_torch.ops import (blind_rotate, cmux, keyswitch,
+                                     lanes_step, step_parts)
     return {"cmux_step": cmux, "keyswitch": keyswitch,
-            "blind_rotate_chunk": blind_rotate, "lanes_step": lanes_step}
+            "blind_rotate_chunk": blind_rotate, "lanes_step": lanes_step,
+            "step_parts": step_parts}
 
 
 def reset_counts():
@@ -1379,6 +1403,247 @@ def k4_shards(dev, rng, tp, results):
                     del parts, chan, got
 
 
+def check_step_parts(nft, dev, rng, results):
+    """K5: every stage part against its plain version, bit for bit, on one
+    random exact key row, at batch 256 and at a ragged 101; the FULL step
+    also against K1.  These launches are comparisons: the counts are set
+    to 0 afterwards."""
+    from nufhe_tpu_torch.ops import cmux, step_parts as sp
+    tp = nft.NuFHEParameters().tgsw_params
+    kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
+    key_row = random_key(rng, 1, tp, dev, "NTT")[0].contiguous()
+    for batch in (101, 256):
+        acc, p = random_acc(rng, batch, dev), random_powers(rng, (batch,), dev)
+        for name in sp.PARTS:
+            got = sp.step_part(name, acc, p, key_row, **kw)
+            want = sp.step_part_plain(name, acc, p, key_row, **kw)
+            torch.cuda.synchronize()
+            record_err(results, "step_parts", "K5 %r vs plain, batch %d"
+                       % (name, batch), max_abs_err(got, want))
+        record_err(results, "step_parts", "K5 'FULL step' vs K1, batch %d"
+                   % batch, max_abs_err(sp.step_part("FULL step", acc, p,
+                                                     key_row, **kw),
+                                        cmux.cmux_step(acc, p, key_row, **kw)))
+    reset_counts()
+
+
+def part_bound(name, batch):
+    """(bound ms, by) of one K5 part: acc in, its output out, the powers
+    where it rotates, the key row where it reads it, and the MAC's int8
+    operations where it runs the MAC."""
+    from nufhe_tpu_torch.ops import step_parts as sp
+    n_bytes = batch * 2 * 1024 * 4 + batch * sp.out_polys(name) * 1024 * 4
+    if name in ("rotate", "rot+decomp", "FULL step"):
+        n_bytes += batch * 4
+    if name in ("dec+fwd+key", "dec+fwd+mac", "dec+fwd+mac+inv", "FULL step"):
+        n_bytes += sp.G * sp.MASK1 * sp.L * sp.R * 8
+    macs = name in ("dec+fwd+mac", "dec+fwd+mac+inv", "FULL step")
+    return bound_ms(n_bytes, mac_ops(batch, "NTT") if macs else 0,
+                    INT8_OPS_PER_S)
+
+
+def step_parts_timing(dev, results, microbench, smi):
+    """Phase ``step_parts``: ``tools/microbench_torch.py parts`` at 2^14,
+    the microbenchmark's path, with the launch counts set to 0 just before
+    it and read just after; then every part on the same inputs against its
+    plain version, the FULL step's plain time, and each part's bound."""
+    from nufhe_tpu_torch.ops import step_parts as sp
+    b = TIMING_BATCH
+    torch.cuda.synchronize()
+    reset_counts()
+    ms = microbench.bench_parts(b, dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print("microbench parts, batch %d: launches %s" % (b, json.dumps(counts)))
+    if not counts["step_parts"] or any(
+            n for k, n in counts.items() if k != "step_parts"):
+        raise AssertionError("microbench parts did not run on K5 alone")
+    results["step_parts"]["launches"] = counts["step_parts"]
+    acc, p, row, kw = microbench._setup(b, dev, exact=True)
+    plain = {}
+    for name in sp.PARTS:
+        got = sp.step_part(name, acc, p, row, **kw)
+        plain_out = []
+        plain[name] = cuda_ms(lambda: plain_out.append(
+            sp.step_part_plain(name, acc, p, row, **kw)), 1)
+        record_err(results, "step_parts", "K5 %r vs plain, batch %d"
+                   % (name, b), max_abs_err(got, plain_out[0]))
+        del got, plain_out
+    bounds = {name: part_bound(name, b) for name in sp.PARTS}
+    bound, by = bounds["FULL step"]
+    results["step_parts"].update(ms=ms["FULL step"],
+                                 plain_ms=plain["FULL step"], bound_ms=bound,
+                                 bound_by=by, library_ms=None)
+    print(json.dumps({"step_parts": {
+        name: {"ms": ms[name], "plain_ms": plain[name],
+               "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+        for name in sp.PARTS}, "batch": b, "engine": "exact", "card": smi}))
+
+
+def microbench_phase(dev, microbench, smi):
+    """Phase ``microbench``: ``rotation`` at 2^14 in both engines (100 K1
+    launches against K3 at chunks 10, 25 and 50, each chunked rotation
+    equal to the per-step one) and ``keyswitch`` at 2^14."""
+    b = TIMING_BATCH
+    t0 = time.time()
+    out = {}
+    for mode in ("NTT", "FFT"):
+        torch.cuda.synchronize()
+        reset_counts()
+        res = microbench.bench_rotation(b, dev, n_steps=100,
+                                        chunks=(10, 25, 50),
+                                        exact=mode == "NTT")
+        counts = read_counts()
+        if not (counts["cmux_step"] and counts["blind_rotate_chunk"]):
+            raise AssertionError("rotation did not run K1 and K3")
+        out["rotation " + mode] = {str(k): v for k, v in res.items()}
+    reset_counts()
+    out["keyswitch"] = microbench.bench_keyswitch(b, dev)
+    if not read_counts()["keyswitch"]:
+        raise AssertionError("keyswitch did not run K2")
+    print(json.dumps({"microbench": out, "batch": b, "steps": 100,
+                      "card": smi}))
+    print("microbench phase: %.1f s" % (time.time() - t0))
+
+
+def oracle_worker(seed):
+    """The host half of phase ``oracle``, in a worker process: the n=500
+    keys of ``DeterministicRNG(SEED)`` made on the host (equal to the
+    card's, phase 4), ``ORACLE_INPUTS`` encrypted pairs of bits, and
+    ``ref/bootstrap_ref.bootstrap`` of their NAND's linear part in both
+    modes (numpy).  Returns numpy arrays only."""
+    import nufhe_tpu_torch as nft
+    from nufhe_tpu_torch.numeric import phase_to_t32
+    from nufhe_tpu_torch.ref import bootstrap_ref
+    secret, cloud = nft.make_key_pair(nft.DeterministicRNG(SEED),
+                                      on_device=False, lwe_size=N_LWE)
+    bits = np.random.RandomState(seed).randint(0, 2, (2, ORACLE_INPUTS)
+                                               ).astype(bool)
+    crng = nft.DeterministicRNG(seed)
+    cx, cy = (nft.encrypt(crng, secret, v, device="cpu") for v in bits)
+    lin_a, lin_b = (t.numpy() for t in nand_linear(cx, cy))
+    bk, ks = cloud.bootstrap_key, cloud.keyswitch_key
+    out = dict(bits=bits, secret=secret.dumps(),
+               cx=[t.numpy() for t in (cx.a, cx.b, cx.current_variances)],
+               cy=[t.numpy() for t in (cy.a, cy.b, cy.current_variances)])
+    for mode in ("NTT", "FFT"):
+        params = nft.NuFHEParameters(lwe_size=N_LWE, transform_type=mode)
+        t0 = time.time()
+        res = bootstrap_ref.bootstrap(
+            lin_a, lin_b, bk.bk_coeff, (ks.ks_a, ks.ks_b, ks.ks_cv),
+            phase_to_t32(1, 8), params.tgsw_params,
+            (params.ks_decomp_length, params.ks_log2_base),
+            exact=mode == "NTT")
+        out[mode] = (res, time.time() - t0)
+    return out
+
+
+def oracle_phase(nft, dev, secret, cloud, cloud_fft, oracle_job):
+    """Phase ``oracle``: the worker's inputs on the card through NAND on
+    the default path (K3 + K2), the per-step path (K1 + K2) and the lanes
+    path (K4 + K2), both modes, each with its launch counts; a and b equal
+    the numpy oracle's bit for bit and cv agrees within
+    ``utils.errors_allclose``."""
+    from nufhe_tpu_torch.utils import errors_allclose
+    t0 = time.time()
+    host = oracle_job.get()
+    print("oracle: joined the worker after %.1f s of waiting; its n=500 "
+          "bootstraps of %d inputs took %.1f s ('NTT') and %.1f s ('FFT')"
+          % (time.time() - t0, ORACLE_INPUTS, host["NTT"][1], host["FFT"][1]))
+    if host["secret"] != secret.dumps():
+        raise AssertionError("the oracle's host keys are not the card's")
+    cx, cy = (nft.LweSampleArray(cloud.params.in_out_params,
+                                 *(torch.from_numpy(x).to(dev) for x in arrs))
+              for arrs in (host["cx"], host["cy"]))
+    want_bits = ~(host["bits"][0] & host["bits"][1])
+    none = dict.fromkeys(KERNEL_NAMES, 0)
+    n_chunks = N_LWE // CHUNK
+    paths = (
+        ("default", None, dict(none, blind_rotate_chunk=n_chunks,
+                               keyswitch=1)),
+        ("per-step", nft.PerformanceParameters(chunk_steps=1),
+         dict(none, cmux_step=N_LWE, keyswitch=1)),
+        ("lanes", nft.PerformanceParameters(single_kernel_bootstrap=False),
+         dict(none, lanes_step=N_LWE, keyswitch=1)))
+    for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
+        want_a, want_b, want_cv = host[mode][0]
+        for path, perf, expect in paths:
+            label = "oracle %s %s path" % (mode, path)
+            out, _ = run_gate(nft, label, secret,
+                              nft.VirtualMachine(c, perf, device=dev),
+                              "gate_nand", (cx, cy), want_bits, expect)
+            same = (np.array_equal(out.a.cpu().numpy(), want_a)
+                    and np.array_equal(out.b.cpu().numpy(), want_b))
+            close = errors_allclose(out.current_variances, want_cv)
+            print("%s: a, b vs ref/bootstrap_ref.bootstrap on %d inputs at "
+                  "n=%d: %s; cv %s" % (label, ORACLE_INPUTS, N_LWE,
+                                       "bit-equal" if same else "DIFFERENT",
+                                       "allclose" if close else "DIFFERENT"))
+            if not (same and close):
+                raise AssertionError("%s differs from the oracle" % label)
+
+
+def native_keygen(nft, dev, cloud):
+    """Phase ``native_keygen``: the host C++ transform and limb split
+    (``native.py``) must load; the host keygen of the card's seed, its
+    limbs and its rows key through it, each timed beside the numpy oracle
+    and equal to it and to the card-made key."""
+    from nufhe_tpu_torch import native
+    from nufhe_tpu_torch.ops import transform as tf
+    from nufhe_tpu_torch.ref import transform_ref as tr
+    t0 = time.time()
+    if not native.available():
+        raise AssertionError("native.available() is false on the card's host")
+    t_build = time.time() - t0
+    (_, h_cloud), t_keygen = synced(lambda: nft.make_key_pair(
+        nft.DeterministicRNG(SEED), on_device=False, lwe_size=N_LWE))
+    bk = h_cloud.bootstrap_key
+    coeff = bk.bk_coeff
+    t0 = time.time()
+    limbs = bk.limbs()
+    t_limbs = time.time() - t0
+    t0 = time.time()
+    hat_np = tr.forward(coeff)
+    t_fwd_np = time.time() - t0
+    limbs_np = tf.key_limbs_host(hat_np, exact=True).reshape(limbs.shape)
+    t_limbs_np = time.time() - t0
+    t0 = time.time()
+    hat = native.forward_u64(coeff)
+    t_fwd = time.time() - t0
+    check_equal("native forward_u64 vs numpy forward", hat, hat_np)
+    check_equal("native key limbs vs numpy", limbs, limbs_np)
+    rows, t_rows = synced(lambda: bk.device(dev))
+    check_equal("host rows key (native) vs card-made key", rows,
+                cloud.bootstrap_key.device(dev))
+    check_equal("host compact limbs (native) vs card-made key",
+                bk.compact()[0], cloud.bootstrap_key.compact()[0])
+    print("native_keygen (n=%d): library loaded in %.3f s; host keygen "
+          "make_key_pair(on_device=False) %.3f s; "
+          "key limbs %.3f s native vs %.3f s numpy; forward transform %.3f s "
+          "native vs %.3f s numpy; rows key with upload %.3f s"
+          % (N_LWE, t_build, t_keygen, t_limbs,
+             t_limbs_np, t_fwd, t_fwd_np, t_rows))
+
+
+def run_examples():
+    """Phase ``examples``: each ``examples/*_torch.py`` of the five in a
+    process of its own, on the card; it must exit 0 and print its OK
+    line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name in EXAMPLES:
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, os.path.join(root, "examples",
+                                                            name)],
+                              capture_output=True, text=True, timeout=300)
+        lines = proc.stdout.strip().splitlines()
+        last = lines[-1] if lines else ""
+        print("example %s: exit %d in %.1f s: %s"
+              % (name, proc.returncode, time.time() - t0, last))
+        if proc.returncode != 0 or not last.endswith("OK"):
+            raise AssertionError("example %s failed:\n%s\n%s"
+                                 % (name, proc.stdout, proc.stderr))
+
+
 def build_kernels():
     from nufhe_tpu_torch.kernels import build
     t0 = time.time()
@@ -1405,6 +1670,17 @@ def main():
                                             torch.version.cuda))
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(SEED)
+    # the oracle's n=500 bootstraps (host numpy) overlap the card phases
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        oracle_job = pool.apply_async(oracle_worker, (SEED + 3,))
+        return smoke(nft, smi, dev, rng, oracle_job)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def smoke(nft, smi, dev, rng, oracle_job):
     build_kernels()
 
     results = {
@@ -1424,12 +1700,18 @@ def main():
             name="lanes_step", route="cuda",
             source="nufhe_tpu_torch/kernels/csrc/lanes_step.cu",
             replaces="nufhe_tpu/ops/pallas/blind_rotate.py:175"),
+        "step_parts": dict(
+            name="step_parts", route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/step_parts.cu",
+            replaces="tools/microbench.py:128"),
     }
     check_kernels(nft, dev, rng, results)
+    check_step_parts(nft, dev, rng, results)
 
     t0 = time.time()
     secret, cloud, cloud_fft, host_prepared = keygen_on_card(nft, dev)
     print("keygen and key preparation phase: %.1f s" % (time.time() - t0))
+    native_keygen(nft, dev, cloud)
     launches, vms, nand = gate_paths(nft, dev, rng, secret, cloud, cloud_fft)
     host_key_gates(nft, dev, secret, host_prepared, nand)
     variant_gates(nft, dev, rng)
@@ -1440,12 +1722,19 @@ def main():
     adder_crossover(nft, dev, rng, secret, vms["default NTT"], smi)
     print("containers, integer circuits and crossover: %.1f s"
           % (time.time() - t0))
+    oracle_phase(nft, dev, secret, cloud, cloud_fft, oracle_job)
     multi_device(nft, dev, rng, secret, cloud, cloud_fft, nand, results, smi)
-    for name, n in launches.items():
-        if not n:
+    for name in GATE_KERNELS:
+        if not launches[name]:
             raise AssertionError("kernel %s was not launched on its path" % name)
-        results[name]["launches"] = n
+        results[name]["launches"] = launches[name]
     timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results)
+    sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tools"))
+    import microbench_torch as microbench
+    step_parts_timing(dev, results, microbench, smi)
+    microbench_phase(dev, microbench, smi)
+    run_examples()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -36,6 +36,8 @@ KERNELS = {
     "lanes_step": ("lanes_step.cu", "lanes_step_launch",
                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_uint, _I,
                     _I, _I, _I, _I, _I, _I, _I, _P]),
+    "step_parts": ("step_parts.cu", "step_parts_launch",
+                   [_P, _P, _P, _P, _I, _I, ctypes.c_uint, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

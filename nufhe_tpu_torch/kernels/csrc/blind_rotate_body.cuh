@@ -3,7 +3,8 @@
 // launch, in both engine modes.  The chunked rotation (K3,
 // blind_rotate_chunk.cu) and the per-step kernel (K1, cmux_step.cu: a chunk
 // of 1 on one key row) are both this template, so the two cannot drift
-// apart.
+// apart; so are the stage parts (K5, step_parts.cu: K1 cut after a stage,
+// the template's last argument).
 //
 //   acc' = acc + sum_{g=(o_in,d)} decomp_d((X^p - 1) * acc[o_in]) (*) BK[g, o_out]
 //
@@ -115,26 +116,20 @@ struct Shape {
       kS * (16 * kG > 32 * M ? 16 * kG : 32 * M);
 };
 
-// The MAC of one slot p (frequency rev6(p)) for the block's samples; the
-// calling warp owns the slot.
+// The key rows of MAC slot p (frequency rev6(p)), built by the calling
+// warp from the slot's int64 key residues: row (g, o, L) byte 31 - r is
+// limb L of side 0 at rotation r, byte 63 - r that of side 1.
 template <int M, int D, bool kRounded>
-__device__ __forceinline__ void mac_slot(
-    int p, const long long* __restrict__ key_row, uint32_t* arow,
-    uint32_t* work, uint32_t* limbs) {
+__device__ __forceinline__ void key_rows(int p,
+                                         const long long* __restrict__ key_row,
+                                         uint32_t* arow) {
   using S = Shape<M, D>;
-  constexpr int kG = S::kG;
-  constexpr int kS = S::kS;
   constexpr int kRows = kRounded ? 4 : 6;    // limb rows a (g, o)
   const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-
-  // the slot's key residues -> limb rows: row (g, o, L) byte 31 - r is
-  // limb L of side 0 at rotation r, byte 63 - r that of side 1
   const int t = rev6(p);
   uint8_t* rb = reinterpret_cast<uint8_t*>(arow);
 #pragma unroll
-  for (int go = 0; go < kG * M; ++go) {
+  for (int go = 0; go < S::kG * M; ++go) {
     const size_t idx = ((size_t)go * kL + t) * kR + lane;
     uint32_t l0[kRows], l1[kRows];
     if constexpr (kRounded) {
@@ -152,6 +147,23 @@ __device__ __forceinline__ void mac_slot(
       row[63 - lane] = (uint8_t)l1[L];
     }
   }
+}
+
+// The MAC of one slot p (frequency rev6(p)) for the block's samples; the
+// calling warp owns the slot.
+template <int M, int D, bool kRounded>
+__device__ __forceinline__ void mac_slot(
+    int p, const long long* __restrict__ key_row, uint32_t* arow,
+    uint32_t* work, uint32_t* limbs) {
+  using S = Shape<M, D>;
+  constexpr int kG = S::kG;
+  constexpr int kS = S::kS;
+  constexpr int kRows = kRounded ? 4 : 6;    // limb rows a (g, o)
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+
+  key_rows<M, D, kRounded>(p, key_row, arow);
 
   // B fragments: sample gid's limbs i of digit polynomial g, bytes
   // 4tig..4tig+3 and 16+4tig..+3 (samples past kS are zero columns)
@@ -237,7 +249,67 @@ __device__ __forceinline__ void mac_slot(
   __syncwarp();   // the next slot rewrites the key rows
 }
 
-template <int M, int D, bool kRounded>
+// Where a launch stops the step.  K1 and K3 run it whole (kFull, the
+// default); K5 (step_parts.cu) cuts it after a stage, at (2, 2) exact, to
+// time the stages apart, so each part is a prefix of this kernel's own
+// code.  A part writes an output that depends on all the work it does
+// (step_parts.cu lists them):
+enum Part : int {
+  kRotate = 0,         // (X^p - 1) * acc                        (B, M, N)
+  kRotDecomp = 1,      // its signed gadget digits, g = o*D + d   (B, G, N)
+  kDecFwd = 2,         // acc's digits (no rotation), forward, folded
+  kDecFwdKey = 3,      // 2, the limb split, the key rows, folded
+  kDecFwdMac = 4,      // 2, the limb split, the MAC: both channels, folded
+  kInvOnly = 5,        // inverse and fold of a stand-in channel, into acc
+  kDecFwdMacInv = 6,   // acc's digits (no rotation) times the key row
+  kFull = 7,           // the CMUX step
+};
+
+template <int P, int M, int D>
+struct PartOut {
+  static constexpr bool kRotates = P == kRotate || P == kRotDecomp || P == kFull;
+  // the accumulator is the output (else a folded buffer in `work`)
+  static constexpr bool kFromAcc =
+      P == kInvOnly || P == kDecFwdMacInv || P == kFull;
+  // output polynomials a sample, and the work polynomials summed into one
+  static constexpr int kPolys = P == kRotDecomp ? M * D : M;
+  static constexpr int kSum =
+      P == kDecFwd ? D : (P == kDecFwdKey || P == kDecFwdMac) ? 2 : 1;
+};
+
+// kDecFwdKey's stand-in for the MAC of slot p: the slot's key rows
+// (key_rows), then one read of each row word and of the slot's digit
+// limbs; the lo channel of every (sample, o) gets the sum.
+template <int M, int D>
+__device__ __forceinline__ void key_slot(int p,
+                                         const long long* __restrict__ key_row,
+                                         uint32_t* arow, uint32_t* work,
+                                         const uint32_t* limbs) {
+  using S = Shape<M, D>;
+  const int lane = threadIdx.x & 31;
+  key_rows<M, D, false>(p, key_row, arow);
+  __syncwarp();
+  uint32_t ksum = 0;
+#pragma unroll
+  for (int r = 0; r < S::kG * M * 6; ++r)
+    ksum += arow[r * kRowWords + (lane & 15)];
+  const int8_t* lb =
+      reinterpret_cast<const int8_t*>(limbs + p * S::kRegionWords);
+#pragma unroll
+  for (int n = 0; n < S::kS; ++n) {
+    int lsum = 0;
+#pragma unroll
+    for (int gi = 0; gi < 2 * S::kG; ++gi)
+      lsum += lb[(gi * S::kS + n) * 32 + lane];
+#pragma unroll
+    for (int o = 0; o < M; ++o)
+      work[n * S::kWorkWords + (o * kL + p) * kR + lane] =
+          ksum + (uint32_t)lsum;
+  }
+  __syncwarp();   // the next slot rewrites the key rows
+}
+
+template <int M, int D, bool kRounded, int kPart = kFull>
 __global__ void __launch_bounds__(Shape<M, D>::kThreads, 1)
 blind_rotate_kernel(const int32_t* __restrict__ acc_in,
                     int32_t* __restrict__ acc_out,
@@ -245,6 +317,7 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
                     const long long* __restrict__ key, int batch, int start,
                     int chunk, uint32_t offset, int log2_base) {
   using S = Shape<M, D>;
+  using O = PartOut<kPart, M, D>;
   constexpr int kG = S::kG;
   constexpr int kS = S::kS;
   constexpr int kWarps = S::kWarps;
@@ -283,36 +356,75 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
     // 1-3. a warp a (sample, digit polynomial g = o*D + d): rotation,
     // digit and forward transform in registers, the split into int8 limbs
     // a0, a1 by MAC slot p = rev6(frequency)
-    if (S::kDigitRoles == kWarps || warp < S::kDigitRoles) {
-      const int s = warp / kG;
-      const int g = warp % kG;
-      const int p = s < ns
-          ? (__ldg(bara_t + step * batch + b0 + s) & (2 * kN - 1)) : 0;
-      int x[kL];
-      forward_digits(acc_s + s * kAccWords + (g / D) * kN, p,
-                     32 - (g % D + 1) * log2_base, offset, base_mask, half,
-                     lane, x);
-      uint8_t* lb = reinterpret_cast<uint8_t*>(limbs);
+    if constexpr (kPart != kInvOnly) {
+      if (S::kDigitRoles == kWarps || warp < S::kDigitRoles) {
+        const int s = warp / kG;
+        const int g = warp % kG;
+        const int p = s < ns
+            ? (__ldg(bara_t + step * batch + b0 + s) & (2 * kN - 1)) : 0;
+        const uint32_t* a = acc_s + s * kAccWords + (g / D) * kN;
+        const int shift = 32 - (g % D + 1) * log2_base;
+        if constexpr (kPart == kRotate || kPart == kRotDecomp) {
+          // coefficient lane*32 + j at q-layout j*32 + lane
 #pragma unroll
-      for (int f = 0; f < kL; ++f) {
-        uint8_t* reg =
-            lb + rev6c(f) * S::kRegionWords * 4 + (g * 2 * kS + s) * 32;
-        reg[lane] = (uint8_t)limb0(x[f]);
-        reg[kS * 32 + lane] = (uint8_t)limb1(x[f]);
+          for (int j = 0; j < kL / 2; ++j) {
+            const uint32_t v = rotated_coeff(a, p, j, lane);
+            if constexpr (kPart == kRotate)
+              work[(s * M + g / D) * kN + j * 32 + lane] = v;
+            else
+              work[(s * kG + g) * kN + j * 32 + lane] =
+                  (uint32_t)gadget_digit(v, shift, offset, base_mask, half);
+          }
+        } else {
+          int x[kL];
+          forward_digits<O::kRotates>(a, p, shift, offset, base_mask, half,
+                                      lane, x);
+          if constexpr (kPart == kDecFwd) {
+            // frequencies 2m and 2m + 1 lie in slots rev6(2m) and + 32
+#pragma unroll
+            for (int m = 0; m < kL / 2; ++m)
+              work[(s * kG + g) * kN + rev6c(2 * m) * 32 + lane] =
+                  (uint32_t)(x[2 * m] + x[2 * m + 1]);
+          } else {
+            uint8_t* lb = reinterpret_cast<uint8_t*>(limbs);
+#pragma unroll
+            for (int f = 0; f < kL; ++f) {
+              uint8_t* reg =
+                  lb + rev6c(f) * S::kRegionWords * 4 + (g * 2 * kS + s) * 32;
+              reg[lane] = (uint8_t)limb0(x[f]);
+              reg[kS * 32 + lane] = (uint8_t)limb1(x[f]);
+            }
+          }
+        }
       }
+      __syncthreads();
     }
-    __syncthreads();
 
-    // 4. the MAC, a warp a slot
-    for (int p = warp; p < kL; p += kWarps)
-      mac_slot<M, D, kRounded>(p, key_row, arow, work, limbs);
-    __syncthreads();
+    // 4. the MAC, a warp a slot (kDecFwdKey: its stand-in)
+    if constexpr (kPart == kDecFwdKey) {
+      for (int p = warp; p < kL; p += kWarps)
+        key_slot<M, D>(p, key_row, arow, work, limbs);
+      __syncthreads();
+    } else if constexpr (kPart == kDecFwdMac || kPart == kDecFwdMacInv ||
+                         kPart == kFull) {
+      for (int p = warp; p < kL; p += kWarps)
+        mac_slot<M, D, kRounded>(p, key_row, arow, work, limbs);
+      __syncthreads();
+    }
+    if constexpr (kPart == kDecFwdMac) {
+      // the hi channel (over the slots' limbs) onto the lo channel
+      for (int e = tid; e < kS * S::kWorkWords; e += kThreads)
+        work[e] += limbs[((e >> 5) & (kL - 1)) * S::kRegionWords +
+                         (e >> 11) * kR + (e & 31)];
+      __syncthreads();
+    }
 
     // 5-6. a warp a channel polynomial (lo of (s, o), and hi in the exact
     // form): the inverse transform and the fold, coefficient i*32 + j at
     // q-layout j*32 + i; hi >> 6 waits in its rows 0..31, lo + (hi >> 6)
-    // (or lo) is added to the accumulator
-    {
+    // (or lo) is added to the accumulator (kDecFwdMacInv: in its place;
+    // kInvOnly: the stand-in channel is acc's q-layout polynomial, twice)
+    if constexpr (O::kFromAcc) {
       const bool role = kChanRoles == kWarps || warp < kChanRoles;
       const bool hi_warp = warp >= kS * M;
       const int so = warp % (kS * M);            // s * M + o
@@ -321,7 +433,9 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
       uint32_t x[kL];
       if (role) {
 #pragma unroll
-        for (int r = 0; r < kL; ++r) x[r] = src[r * stride + lane];
+        for (int r = 0; r < kL; ++r)
+          x[r] = kPart == kInvOnly ? acc_s[so * kN + (r & 31) * 32 + lane]
+                                   : src[r * stride + lane];
         inverse_fold(x, lane);
         if (hi_warp) {
 #pragma unroll
@@ -337,23 +451,43 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
           uint32_t delta = x[j];
           if constexpr (!kRounded)
             delta += limbs[j * S::kRegionWords + so * kR + lane];
-          acc[j * 32] += delta;
+          if constexpr (kPart == kDecFwdMacInv)
+            acc[j * 32] = delta;
+          else
+            acc[j * 32] += delta;
         }
       }
     }
     __syncthreads();
   }
 
-  for (int e = tid; e < kS * kAccWords; e += kThreads) {
-    const int s = e / kAccWords;
-    const int on = e % kAccWords;
-    if (s < ns)
-      acc_out[(size_t)(b0 + s) * kAccWords + on] = (int32_t)
-          acc_s[s * kAccWords + (on & ~(kN - 1)) + q_of(on & (kN - 1))];
+  if constexpr (O::kFromAcc) {
+    for (int e = tid; e < kS * kAccWords; e += kThreads) {
+      const int s = e / kAccWords;
+      const int on = e % kAccWords;
+      if (s < ns)
+        acc_out[(size_t)(b0 + s) * kAccWords + on] = (int32_t)
+            acc_s[s * kAccWords + (on & ~(kN - 1)) + q_of(on & (kN - 1))];
+    }
+  } else {
+    // a part's work buffer: output polynomial i of sample s is the sum of
+    // work polynomials (s * kPolys + i) * kSum + d, in coefficient order
+    constexpr int kOutWords = O::kPolys * kN;
+    for (int e = tid; e < kS * kOutWords; e += kThreads) {
+      const int s = e / kOutWords;
+      const int on = e % kOutWords;
+      if (s >= ns) continue;
+      const uint32_t* w = work + (s * O::kPolys + on / kN) * O::kSum * kN +
+                          q_of(on & (kN - 1));
+      uint32_t v = 0;
+#pragma unroll
+      for (int d = 0; d < O::kSum; ++d) v += w[d * kN];
+      acc_out[(size_t)(b0 + s) * kOutWords + on] = (int32_t)v;
+    }
   }
 }
 
-template <int M, int D, bool kRounded>
+template <int M, int D, bool kRounded, int kPart = kFull>
 cudaError_t launch(const int32_t* acc_in, int32_t* acc_out,
                    const int32_t* bara_t, const long long* key, int batch,
                    int start, int chunk, uint32_t offset, int log2_base,
@@ -365,10 +499,10 @@ cudaError_t launch(const int32_t* acc_in, int32_t* acc_out,
                     S::kWarps * S::kG * M * kRows * kRowWords) *
                    (int)sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      blind_rotate_kernel<M, D, kRounded>,
+      blind_rotate_kernel<M, D, kRounded, kPart>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  blind_rotate_kernel<M, D, kRounded>
+  blind_rotate_kernel<M, D, kRounded, kPart>
       <<<(batch + S::kS - 1) / S::kS, S::kThreads, smem, stream>>>(
           acc_in, acc_out, bara_t, key, batch, start, chunk, offset,
           log2_base);

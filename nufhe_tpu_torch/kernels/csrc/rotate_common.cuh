@@ -113,22 +113,41 @@ __device__ __forceinline__ void dft_regs(T (&x)[kL], int lane) {
   }
 }
 
-// Rotation (X^p - 1) * a and the gadget digit at bit `shift` of one
-// accumulator polynomial `a` (q-layout, shared memory) into the warp's
-// registers, then the forward transform: x[f] holds frequency f (natural
-// order), lane k its coefficient k.  Block j of the polynomial goes to row
-// rev6(j); the odd rows are the zero padding.
+// Coefficient lane*32 + j of (X^p - 1) * a, for one accumulator polynomial
+// `a` (q-layout, shared memory); of `a` itself when kRot is false (the
+// stage parts of K5 that leave the rotation out, step_parts.cu).
+template <bool kRot = true>
+__device__ __forceinline__ uint32_t rotated_coeff(const uint32_t* a, int p,
+                                                  int j, int lane) {
+  const uint32_t own = a[j * 32 + lane];
+  if constexpr (!kRot) return own;
+  const int src = (lane * 32 + j - p) & (2 * kN - 1);
+  uint32_t v = a[q_of(src & (kN - 1))];
+  if (src >= kN) v = 0u - v;
+  return v - own;
+}
+
+// The signed gadget digit of coefficient v at bit `shift`
+__device__ __forceinline__ int gadget_digit(uint32_t v, int shift,
+                                            uint32_t offset, int base_mask,
+                                            int half) {
+  return (int)(((v + offset) >> shift) & base_mask) - half;
+}
+
+// Rotation (X^p - 1) * a (rotated_coeff) and the gadget digit at bit
+// `shift` of one accumulator polynomial into the warp's registers, then the
+// forward transform: x[f] holds frequency f (natural order), lane k its
+// coefficient k.  Block j of the polynomial goes to row rev6(j); the odd
+// rows are the zero padding.
+template <bool kRot = true>
 __device__ __forceinline__ void forward_digits(const uint32_t* a, int p,
                                                int shift, uint32_t offset,
                                                int base_mask, int half,
                                                int lane, int (&x)[kL]) {
 #pragma unroll
   for (int j = 0; j < kL / 2; ++j) {
-    const int src = (lane * 32 + j - p) & (2 * kN - 1);
-    uint32_t v = a[q_of(src & (kN - 1))];
-    if (src >= kN) v = 0u - v;
-    const uint32_t shifted = v - a[j * 32 + lane] + offset;
-    x[rev6c(j)] = (int)((shifted >> shift) & base_mask) - half;
+    x[rev6c(j)] = gadget_digit(rotated_coeff<kRot>(a, p, j, lane), shift,
+                               offset, base_mask, half);
     x[rev6c(j) + 1] = 0;
   }
   dft_regs<int, false>(x, lane);

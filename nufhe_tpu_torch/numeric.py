@@ -39,6 +39,19 @@ def double_to_t32(d):
     return (as_int & np.int64(0xFFFFFFFF)).astype(np.uint32).view(np.int32).astype(Torus32)
 
 
+def t32_to_phase_ref(phase, mspace_size: int):
+    """Modulus switch: nearest multiple of 1/mspace_size, as an integer phase
+    in ``[0, mspace_size)``.
+
+    Reference kernel semantics: ``nufhe/numeric_functions_cpu.py:23-37``:
+    ``((phase_u32 + interval/2) // interval)`` with ``interval = 2^32 / mspace``.
+    """
+    interv = np.uint32(2**32 // mspace_size)
+    half = np.uint32(interv // 2)
+    phase_u = np.asarray(phase).astype(np.int64).astype(np.uint64) & np.uint64(0xFFFFFFFF)
+    return (((phase_u + half) % (2**32)) // interv).astype(Int32)
+
+
 _1s8 = phase_to_t32(1, 8)
 
 

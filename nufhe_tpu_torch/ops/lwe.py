@@ -64,6 +64,24 @@ def lwe_noiseless_trivial(mus, lwe_size: int):
     return a, mus, cv
 
 
+def keyswitch_digits(source_a, decomp_length: int, log2_base: int):
+    """aijs = ((a + prec_offset) >> (32 - (j+1)*log2_base)) & (base-1):
+    (..., in_size) int32 -> (..., in_size, decomp_length) int32, the digits
+    of the keyswitch (``nufhe_tpu/ops/lwe.py::keyswitch_digits``; K2 and
+    its plain version compute them in their own row order,
+    ``ops/keyswitch.keyswitch_digits``).
+
+    Reference: ``nufhe/lwe_gpu.mako:66-93`` semantics (arithmetic shifts).
+    """
+    prec_offset = 2**(32 - (1 + log2_base * decomp_length))
+    shifts = torch.tensor([32 - j * log2_base
+                           for j in range(1, decomp_length + 1)],
+                          device=source_a.device)
+    shifted = wrap_i32(source_a.to(torch.int64)[..., None] + prec_offset)
+    return ((shifted.to(torch.int64) >> shifts)
+            & (2**log2_base - 1)).to(torch.int32)
+
+
 KS_LIMB_BITS = 8
 KS_LIMBS = 4
 

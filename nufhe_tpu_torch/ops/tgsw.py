@@ -5,7 +5,6 @@ the gadget decomposition, the bootstrap key in the TPU's MAC-operand form
 import numpy as np
 import torch
 
-from ..ref import transform_ref as tr
 from ..utils import to_device
 from . import flat_engine as fe
 from . import transform as tf
@@ -27,17 +26,19 @@ def tgsw_polynomial_decomp(sample, offset, decomp_length: int, log2_base: int):
 
 
 def bootstrap_key_limbs_host(bk_coeff, exact=True):
-    """Host part of the key preparation: the exact forward transform (the
-    port's numpy oracle), reduced mod 2^38 and split into two-sided int8
-    limbs (``ops/transform.key_limbs_host``).
+    """Host part of the key preparation: the exact forward transform,
+    reduced mod 2^38 and split into two-sided int8 limbs
+    (``ops/transform.key_limbs_host``), in C++ (``native.py``; the numpy
+    oracle where there is no compiler).
 
     :param bk_coeff: (n, mask1, l, mask1, N) int32 numpy array.
     :param exact: False for the rounded-key ('FFT') form.
     :returns: (n, G, O, L, R, KL, 2) int8 numpy array.
     """
+    from .. import native
     bk_coeff = np.asarray(bk_coeff)
-    n_rows, mask1, decomp, mask1_o, _ = bk_coeff.shape
-    limbs = tf.key_limbs_host(tr.forward(bk_coeff), exact=exact)
+    n_rows, mask1, decomp, mask1_o, poly_n = bk_coeff.shape
+    limbs = native.bootstrap_key_limbs(bk_coeff.reshape(-1, poly_n), exact)
     return limbs.reshape(n_rows, mask1 * decomp, mask1_o, tf.L, tf.R,
                          limbs.shape[-2], 2)
 

@@ -74,8 +74,9 @@ def bootstrap_key_transformed(bk_coeff, device, transform_type='NTT'):
         pos, delta = keygen.bootstrap_key_limbs_device(
             bk_coeff.to(device), exact=transform_type == 'NTT')
         return rows_key_from_limbs(two_sided_limbs_device(pos, delta), device)
+    from .. import native
     bk_coeff = np.asarray(bk_coeff)
-    hat = tr.forward(bk_coeff)                         # (n, mask1, l, mask1, L, R)
+    hat = native.forward_u64(bk_coeff)                 # (n, mask1, l, mask1, L, R)
     if transform_type == 'NTT':
         key = centred_residues(hat).reshape(n, mask1 * l, mask1, L, R)
     else:
@@ -428,10 +429,11 @@ def negacyclic_mul_device(a, b_coeff):
     :returns: (..., N) int32 on ``a``'s device.
     """
     from . import flat_engine as fe
+    from .. import native
     lead = tuple(a.shape[:-1])
     af = a.reshape(-1, N)
     bf = np.asarray(b_coeff.cpu() if torch.is_tensor(b_coeff) else b_coeff)
-    limbs = key_limbs_host(tr.forward(bf.reshape(-1, N)))   # (B, L, R, KL, 2)
+    limbs = native.bootstrap_key_limbs(bf.reshape(-1, N))   # (B, L, R, KL, 2)
     rhs = build_mac_rhs(torch.from_numpy(limbs[:, None, None]).to(a.device))
     out = fe.transformed_mac_flat(fe.q_from_n(af), rhs, mask1=1, g_total=1)
     return fe.n_from_q(out).reshape(lead + (N,))

@@ -1,11 +1,16 @@
-"""Numpy oracle for the blind rotation, the coarse modulus switch and the
-bootstrap noise bookkeeping (mirror of ``nufhe_tpu/ref/bootstrap_ref.py``,
-both engine modes)."""
+"""Numpy oracle for the full bootstrap (``nufhe/bootstrap.py`` semantics;
+mirror of ``nufhe_tpu/ref/bootstrap_ref.py``, both engine modes).
+
+The golden host path: modulus switch, test-vector rotation, the n-step blind
+rotation via exact external products, sample extraction, keyswitch.  The
+port's bootstrap (every engine, on the card and on the CPU) is held bit for
+bit against this module.
+"""
 
 import numpy as np
 
-from ..numeric import Torus32
-from . import polynomials_ref, tgsw_ref
+from ..numeric import Torus32, t32_to_phase_ref
+from . import lwe_ref, polynomials_ref, tgsw_ref, tlwe_ref
 
 
 def blind_rotate(accum_a, bk_coeff, bara, params, exact=True):
@@ -45,6 +50,52 @@ def round_phase_coarse_ref(bara, bits, n_poly):
     up = (rem > half) | ((rem == half) & (((bara >> bits) & 1) == 1))
     out = bara - rem + np.where(up, step, np.int32(0))
     return (out & np.int32(2 * n_poly - 1)).astype(np.int32)
+
+
+def bootstrap(lwe_a, lwe_b, bk_coeff, ks, mu, params, ks_params,
+              no_keyswitch=False, exact=True, coarse_phase_bits=0):
+    """result = LWE(mu) if phase(x) > 0 else LWE(-mu), rebuilt from scratch.
+
+    Reference: ``nufhe/bootstrap.py:154-229``.
+
+    :param lwe_a: (batch..., n) Torus32; ``lwe_b``: (batch...,).
+    :param bk_coeff: coefficient-domain bootstrap key.
+    :param ks: (ks_a, ks_b, ks_cv) keyswitch key arrays or None.
+    :param ks_params: (decomp_length, log2_base) for the keyswitch.
+    :returns: (a, b, cv) in the in_out space (or extracted space).
+    """
+    tlwe_params = params.tlwe_params
+    n_poly = tlwe_params.polynomial_degree
+    mask_size = tlwe_params.mask_size
+
+    barb = t32_to_phase_ref(lwe_b, 2 * n_poly)
+    bara = t32_to_phase_ref(lwe_a, 2 * n_poly)
+    if coarse_phase_bits:
+        bara = round_phase_coarse_ref(bara, coarse_phase_bits, n_poly)
+
+    # testvector = X^{2N - barb} * (mu, mu, ..., mu)
+    testvect = np.full(lwe_b.shape + (n_poly,), Torus32(mu), Torus32)
+    testvectbis = polynomials_ref.shift_polynomial(
+        testvect, barb, invert_powers=True)
+
+    accum, _ = tlwe_ref.tlwe_noiseless_trivial(testvectbis, mask_size)
+    accum = blind_rotate(accum, bk_coeff, bara, params, exact=exact)
+
+    ex_a, ex_b = tlwe_ref.tlwe_extract_lwe_samples(accum)
+    ex_cv = np.full(
+        ex_b.shape,
+        blind_rotate_variance(params, lwe_a.shape[-1], exact=exact,
+                              coarse_phase_bits=coarse_phase_bits),
+        np.float32)
+
+    if no_keyswitch:
+        return ex_a, ex_b, ex_cv
+
+    ks_a, ks_b, ks_cv = ks
+    decomp_length, log2_base = ks_params
+    out_a, out_b, out_cv = lwe_ref.lwe_keyswitch(
+        ks_a, ks_b, ks_cv, ex_a, ex_b, decomp_length, log2_base)
+    return out_a, out_b, (out_cv + ex_cv).astype(np.float32)
 
 
 def blind_rotate_variance(params, n_steps: int, exact=True,

@@ -1,10 +1,43 @@
-"""Host TLWE encryption of zero for keygen (``nufhe/tlwe_cpu.py`` formulas;
-the keygen part of ``nufhe_tpu/ref/tlwe_ref.py``)."""
+"""Numpy oracle for the TLWE layer (``nufhe/tlwe_cpu.py`` formulas; mirror
+of ``nufhe_tpu/ref/tlwe_ref.py``): trivial samples, sample extraction and
+the encryption of zero that host keygen uses."""
 
 import numpy as np
 
 from ..numeric import Torus32, ErrorFloat
 from . import transform_ref
+
+
+def tlwe_noiseless_trivial(mu, mask_size: int):
+    """(0, ..., 0, mu) samples.  Reference: ``nufhe/tlwe_cpu.py:26-38``.
+
+    :param mu: (..., N) torus polynomials.
+    :returns: a: (..., mask_size+1, N).
+    """
+    mu = np.asarray(mu, Torus32)
+    shape = mu.shape[:-1]
+    n = mu.shape[-1]
+    a = np.zeros(shape + (mask_size + 1, n), Torus32)
+    a[..., mask_size, :] = mu
+    cv = np.zeros(shape, ErrorFloat)
+    return a, cv
+
+
+def tlwe_extract_lwe_samples(tlwe_a):
+    """Extract LWE samples from TLWE samples.
+
+    a_out[..., k*N + j] = tlwe_a[..., k, 0] for j = 0 else -tlwe_a[..., k, N-j];
+    b_out = const coeff of the body polynomial.
+    Reference: ``nufhe/tlwe_cpu.py:41-60``.
+    """
+    tlwe_a = np.asarray(tlwe_a)
+    mask_size = tlwe_a.shape[-2] - 1
+    n = tlwe_a.shape[-1]
+    mask = tlwe_a[..., :mask_size, :]
+    a = np.concatenate([mask[..., :1], -mask[..., :0:-1]], axis=-1)
+    a = a.reshape(tlwe_a.shape[:-2] + (mask_size * n,)).astype(Torus32)
+    b = tlwe_a[..., mask_size, 0].copy()
+    return a, b
 
 
 def tlwe_encrypt_zero(key, noises1, noises2, noise: float):

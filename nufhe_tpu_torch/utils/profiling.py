@@ -3,11 +3,12 @@
 Any region can be captured to a trace that Chrome's ``about:tracing``,
 Perfetto or TensorBoard reads, with one context manager or by setting
 ``NUFHE_PROFILE_DIR``; ``annotate`` names a span inside it, and on CUDA
-also an NVTX range.
+also an NVTX range.  ``time_ms`` times a call on the card by CUDA events.
 """
 
 import contextlib
 import os
+import time
 
 import torch
 
@@ -54,3 +55,25 @@ def annotate(name):
             yield
         finally:
             torch.cuda.nvtx.range_pop()
+
+
+def time_ms(fn, reps, device="cuda", warmup=0):
+    """Mean milliseconds a call of ``fn`` over ``reps`` calls after
+    ``warmup`` untimed ones: by CUDA events on a CUDA ``device`` (the
+    card's own time, launch gaps included), by the host clock elsewhere."""
+    for _ in range(warmup):
+        fn()
+    if torch.device(device).type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
