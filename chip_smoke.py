@@ -25,7 +25,13 @@ and prints no result line):
    and 101, each against its plain version, K3 against its chunk of K1
    launches and K4's steps against as many K1 launches; K5 (the exact
    step's stage parts, ``ops/step_parts``): every part against its plain
-   version at batch 256 and 101, its FULL step also against K1;
+   version at batch 256 and 101, its FULL step also against K1; at the
+   same batches K6 (``ops/step_context``, K3 with one stage of each step
+   swapped for a stand-in): every variant in both key forms, 4 steps; K9
+   (``ops/step_profile``, the rotation-family profile): every part in
+   both forms, its FULL step also against K1; K8 (``ops/step_overlap``,
+   the split-halves step) against its plain version and K1; K7
+   (``ops/mac_dot``, the MAC dot alone) in its int8 and bf16 forms;
 4. keygen at the default parameters (n=500, N=1024): ``make_key_pair``
    with its default placement, on the card, and with ``on_device=False``,
    on the host, from one seed, each synchronised, the card's split by a
@@ -127,7 +133,19 @@ and prints no result line):
    engines, each equal to the per-step rotation) and ``keyswitch`` at
    2^14, as one JSON line; ``examples``: each ``examples/*_torch.py`` in a
    process of its own on the card, exit 0 and its OK line;
-12. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
+12. ``step_experiments``, at 2^14, each tool's run with the launch counts
+   set to 0 just before it and read just after, one JSON line a tool with
+   ms, plain ms, bound and the card: T3 (K6) in both engines, "FULL" at
+   100 steps in one launch against two K3 launches of 50, every variant
+   at 4 steps against its plain version, then ``tools/exp_round4_torch.py
+   context`` (100 steps a launch; the in-loop cost of each stage); T2
+   (K9) in both engines, every part against its plain version and the
+   FULL step against K1, then ``exp_round4_torch.py profile``; T7 (K7)
+   both forms on the tool's inputs against their plain versions, then
+   ``tools/exp_int8_torch.py`` (chained calls, the library's products
+   alone beside them); T9 (K8) against its plain version and K1, then
+   ``tools/exp_overlap_torch.py`` (K1 serial, K8 split);
+13. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The bound of a kernel is the larger of its bytes (each input read once,
@@ -142,9 +160,13 @@ such units (its tensor-core form's int8 operations are printed beside
 it: they take longer).  A kernel's ``launches`` in the JSON line is its
 count in the gate of the path that runs it (K1: the per-step path; K2
 and K3: the default path; K4: the lanes path); K5's is its count on the
-microbenchmark's path (``parts``), which is where it runs.  The collectives between
-the grids of a tensor-parallel step are counted apart (``lanes_step.
-collectives``).
+microbenchmark's path (``parts``), which is where it runs, and K6-K9's
+theirs on their tools' paths ('NTT'; K7 int8).  K6's ms, plain ms and
+bound in that line are at 4 steps, the length at which its plain version
+runs at 2^14; its 100-step times are in its own line.  K7's library time
+is its products alone (64 ``torch._int_mm``), a part of its work.  The
+collectives between the grids of a tensor-parallel step are counted apart
+(``lanes_step.collectives``).
 """
 
 import json
@@ -166,9 +188,13 @@ TIMING_BATCH = 1 << 14
 N_LWE = 500                # n: the blind rotation's steps
 CHUNK = 50                 # the default path's steps per K3 launch
 KERNEL_NAMES = ("cmux_step", "keyswitch", "blind_rotate_chunk",
-                "lanes_step", "step_parts")
-# K5 runs on the microbenchmark's path, not on a gate's
+                "lanes_step", "step_parts", "step_context", "mac_dot",
+                "step_overlap", "step_profile")
+# K5-K9 run on the experiment tools' paths, not on a gate's
 GATE_KERNELS = KERNEL_NAMES[:4]
+CONTEXT_STEPS = 100        # K6's timed rotation (tools/exp_round4.py:181)
+CHECK_STEPS = 4            # K6's steps against its plain version at 2^14
+BF16_OPS_PER_S = 989e12
 ORACLE_INPUTS = 8          # inputs of the n=500 bootstrap held to the oracle
 EXAMPLES = ("gate_nand_torch.py", "gate_nand_low_level_torch.py",
             "integer_adder_torch.py", "serialization_torch.py",
@@ -228,10 +254,13 @@ def max_abs_err(x, y):
 
 def counters():
     from nufhe_tpu_torch.ops import (blind_rotate, cmux, keyswitch,
-                                     lanes_step, step_parts)
+                                     lanes_step, mac_dot, step_context,
+                                     step_overlap, step_parts, step_profile)
     return {"cmux_step": cmux, "keyswitch": keyswitch,
             "blind_rotate_chunk": blind_rotate, "lanes_step": lanes_step,
-            "step_parts": step_parts}
+            "step_parts": step_parts, "step_context": step_context,
+            "mac_dot": mac_dot, "step_overlap": step_overlap,
+            "step_profile": step_profile}
 
 
 def reset_counts():
@@ -1427,19 +1456,40 @@ def check_step_parts(nft, dev, rng, results):
     reset_counts()
 
 
-def part_bound(name, batch):
-    """(bound ms, by) of one K5 part: acc in, its output out, the powers
-    where it rotates, the key row where it reads it, and the MAC's int8
-    operations where it runs the MAC."""
+def part_bound(name, batch, mode="NTT", rotates=False):
+    """(bound ms, by) of one K5 part (K9's rotating forms: ``rotates``):
+    acc in, its output out, the powers where it rotates, the key row where
+    it reads it, and the MAC's int8 operations where it runs the MAC."""
     from nufhe_tpu_torch.ops import step_parts as sp
     n_bytes = batch * 2 * 1024 * 4 + batch * sp.out_polys(name) * 1024 * 4
-    if name in ("rotate", "rot+decomp", "FULL step"):
+    if name in ("rotate", "rot+decomp", "FULL step") or rotates:
         n_bytes += batch * 4
     if name in ("dec+fwd+key", "dec+fwd+mac", "dec+fwd+mac+inv", "FULL step"):
-        n_bytes += sp.G * sp.MASK1 * sp.L * sp.R * 8
+        n_bytes += sp.G * sp.MASK1 * sp.L * sp.R * 8 * (2 if mode == "FFT"
+                                                        else 1)
     macs = name in ("dec+fwd+mac", "dec+fwd+mac+inv", "FULL step")
-    return bound_ms(n_bytes, mac_ops(batch, "NTT") if macs else 0,
+    return bound_ms(n_bytes, mac_ops(batch, mode) if macs else 0,
                     INT8_OPS_PER_S)
+
+
+def profile_bound(name, batch, mode):
+    """(bound ms, by) of one K9 part: the accumulator in and out (and the
+    powers) for the no-op and the rotation families, else its K5 part's."""
+    from nufhe_tpu_torch.ops import step_profile as spf
+    if name in spf.K5_PART:
+        return part_bound(spf.K5_PART[name], batch, mode, rotates=True)
+    rot = name in spf.FAMILY_MASKS
+    return bound_ms(2 * batch * 2 * 1024 * 4 + (batch * 4 if rot else 0), 0)
+
+
+def context_bound(batch, mode, steps):
+    """(bound ms, by) of ``steps`` steps of K6's "FULL" variant (K3): the
+    accumulator in and out, the steps' powers and key rows, and the MAC's
+    int8 operations."""
+    from nufhe_tpu_torch.ops import step_parts as sp
+    key_bytes = sp.G * sp.MASK1 * sp.L * sp.R * 8 * (2 if mode == "FFT" else 1)
+    n_bytes = 2 * batch * 2 * 1024 * 4 + steps * (batch * 4 + key_bytes)
+    return bound_ms(n_bytes, steps * mac_ops(batch, mode), INT8_OPS_PER_S)
 
 
 def step_parts_timing(dev, results, microbench, smi):
@@ -1478,6 +1528,265 @@ def step_parts_timing(dev, results, microbench, smi):
         name: {"ms": ms[name], "plain_ms": plain[name],
                "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
         for name in sp.PARTS}, "batch": b, "engine": "exact", "card": smi}))
+
+
+def random_mac_inputs(rng, batch, dev):
+    """K7's inputs: x (64, 256, batch) int32 in [-128, 256) and a random rhs
+    in both forms."""
+    from nufhe_tpu_torch.ops import mac_dot as md
+    x = torch.from_numpy(rng.randint(-128, 256, (64, md.C, batch)).astype(
+        np.int32)).to(dev)
+    r8 = torch.from_numpy(rng.randint(-127, 128, (64, md.C, md.Q)).astype(
+        np.int8)).to(dev)
+    return x, {"int8": r8, "bf16": r8.to(torch.bfloat16)}
+
+
+def check_step_experiments(nft, dev, rng, results):
+    """K6-K9 against their plain versions, bit for bit, at batch 101 (a
+    partial sample group or tile) and 256: K6 every variant in both key
+    forms, 4 steps from step 2 of an 8-step key; K9 every part in both
+    forms, its FULL step also against K1; K8 also against K1; K7 both
+    forms.  These launches are comparisons: the counts are set to 0
+    afterwards."""
+    from nufhe_tpu_torch.ops import (cmux, mac_dot as md, step_context as sc,
+                                     step_overlap as so, step_profile as spf)
+    tp = nft.NuFHEParameters().tgsw_params
+    kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
+    for mode in ("NTT", "FFT"):
+        key = random_key(rng, 8, tp, dev, mode)
+        key_row = key[0].contiguous()
+        for batch in (101, 256):
+            acc = random_acc(rng, batch, dev)
+            bara_t = random_powers(rng, (8, batch), dev)
+            for v in sc.VARIANTS:
+                got = sc.step_context(v, acc, bara_t, key, 2, CHECK_STEPS,
+                                      **kw)
+                want = sc.step_context_plain(v, acc, bara_t, key, 2,
+                                             CHECK_STEPS, **kw)
+                torch.cuda.synchronize()
+                record_err(results, "step_context", "K6 %r %s vs plain, "
+                           "batch %d" % (v, mode, batch),
+                           max_abs_err(got, want))
+            p = bara_t[0].contiguous()
+            for name in spf.PARTS:
+                got = spf.step_profile(name, acc, p, key_row, **kw)
+                want = spf.step_profile_plain(name, acc, p, key_row, **kw)
+                torch.cuda.synchronize()
+                record_err(results, "step_profile", "K9 %r %s vs plain, "
+                           "batch %d" % (name, mode, batch),
+                           max_abs_err(got, want))
+            k1 = cmux.cmux_step(acc, p, key_row, **kw)
+            record_err(results, "step_profile", "K9 'FULL step' %s vs K1, "
+                       "batch %d" % (mode, batch), max_abs_err(
+                           spf.step_profile("FULL step", acc, p, key_row,
+                                            **kw), k1))
+            if mode == "NTT":
+                got = so.step_overlap(acc, p, key_row, **kw)
+                record_err(results, "step_overlap", "K8 vs plain, batch %d"
+                           % batch, max_abs_err(got, so.step_overlap_plain(
+                               acc, p, key_row, **kw)))
+                record_err(results, "step_overlap", "K8 vs K1, batch %d"
+                           % batch, max_abs_err(got, k1))
+    for batch in (101, 256):
+        x, rhs = random_mac_inputs(rng, batch, dev)
+        for form in md.FORMS:
+            got = md.mac_dot(x, rhs[form])
+            want = md.mac_dot_plain(x, rhs[form])
+            torch.cuda.synchronize()
+            record_err(results, "mac_dot", "K7 %s vs plain, batch %d"
+                       % (form, batch), max_abs_err(got, want))
+    reset_counts()
+
+
+def timed_plain(fn):
+    """(output, ms) of one call of a plain version on the card."""
+    out = []
+    ms = cuda_ms(lambda: out.append(fn()), 1)
+    return out[0], ms
+
+
+def tool_counts(label, kernel, run):
+    """``run()`` (a tool's mode) with the launch counts set to 0 just before
+    it and read just after; raises if ``kernel`` did not run.  Returns
+    (run's result, counts)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    res = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print("%s: launches %s" % (label, json.dumps(counts)))
+    if not counts[kernel]:
+        raise AssertionError("%s did not run %s" % (label, kernel))
+    return res, counts
+
+
+def context_phase(dev, results, e4, smi):
+    """T3 on K6 at 2^14, both engines: "FULL" at 100 steps against two K3
+    launches of 50; every variant at 4 steps against its plain version
+    (timed, as the FULL variant's kernel is, for the ``kernels`` line);
+    then ``tools/exp_round4_torch.py context`` (100 steps a launch)."""
+    from nufhe_tpu_torch.ops import blind_rotate as brc, step_context as sc
+    b = TIMING_BATCH
+    line = {}
+    for mode in ("NTT", "FFT"):
+        acc, bara_t, key, kw = e4.context_inputs(b, dev, CONTEXT_STEPS,
+                                                 mode == "NTT")
+        got = sc.step_context("FULL", acc, bara_t, key, 0, CONTEXT_STEPS, **kw)
+        by_k3 = acc
+        for start in range(0, CONTEXT_STEPS, CHUNK):
+            by_k3 = brc.blind_rotate_chunk(by_k3, bara_t, key, start, CHUNK,
+                                           **kw)
+        record_err(results, "step_context", "K6 'FULL' %s, %d steps in one "
+                   "launch, vs %d K3 launches of %d, batch %d"
+                   % (mode, CONTEXT_STEPS, CONTEXT_STEPS // CHUNK, CHUNK, b),
+                   max_abs_err(got, by_k3))
+        del got, by_k3
+        plain = {}
+        for v in sc.VARIANTS:
+            got = sc.step_context(v, acc, bara_t, key, 0, CHECK_STEPS, **kw)
+            want, plain[v] = timed_plain(lambda: sc.step_context_plain(
+                v, acc, bara_t, key, 0, CHECK_STEPS, **kw))
+            record_err(results, "step_context", "K6 %r %s vs plain, %d "
+                       "steps, batch %d" % (v, mode, CHECK_STEPS, b),
+                       max_abs_err(got, want))
+            del got, want
+        ms_check = cuda_ms(lambda: sc.step_context(
+            "FULL", acc, bara_t, key, 0, CHECK_STEPS, **kw), 5)
+        per_step, counts = tool_counts(
+            "exp_round4_torch context %s, batch %d" % (mode, b),
+            "step_context", lambda: e4.context(b, dev, n_steps=CONTEXT_STEPS,
+                                               exact=mode == "NTT"))
+        bound, by = context_bound(b, mode, CHECK_STEPS)
+        step_bound = context_bound(b, mode, 1)[0]
+        line[mode] = {
+            "ms_per_step": per_step,
+            "stage_cost": {v: per_step["FULL"] - t
+                           for v, t in per_step.items() if v != "FULL"},
+            "bound_ms_per_step": step_bound,
+            "check_steps": CHECK_STEPS, "check_ms": ms_check,
+            "check_plain_ms": plain, "check_bound_ms": bound}
+        if mode == "NTT":
+            results["step_context"].update(
+                launches=counts["step_context"], ms=ms_check,
+                plain_ms=plain["FULL"], bound_ms=bound, bound_by=by,
+                library_ms=None)
+    print(json.dumps({"step_context": line, "batch": b,
+                      "steps": CONTEXT_STEPS, "card": smi}))
+
+
+def profile_phase(dev, results, microbench, e4, smi):
+    """T2 on K9 at 2^14, both engines: every part against its plain
+    version (the FULL step also against K1), then
+    ``tools/exp_round4_torch.py profile``; each part's bound."""
+    from nufhe_tpu_torch.ops import cmux, step_profile as spf
+    b = TIMING_BATCH
+    line = {}
+    for mode in ("NTT", "FFT"):
+        acc, p, row, kw = microbench._setup(b, dev, exact=mode == "NTT")
+        plain = {}
+        for name in spf.PARTS:
+            got = spf.step_profile(name, acc, p, row, **kw)
+            want, plain[name] = timed_plain(lambda: spf.step_profile_plain(
+                name, acc, p, row, **kw))
+            record_err(results, "step_profile", "K9 %r %s vs plain, batch %d"
+                       % (name, mode, b), max_abs_err(got, want))
+            del want
+        record_err(results, "step_profile", "K9 'FULL step' %s vs K1, batch "
+                   "%d" % (mode, b), max_abs_err(
+                       got, cmux.cmux_step(acc, p, row, **kw)))
+        ms, counts = tool_counts(
+            "exp_round4_torch profile %s, batch %d" % (mode, b),
+            "step_profile", lambda: e4.profile(b, dev, exact=mode == "NTT"))
+        bounds = {name: profile_bound(name, b, mode) for name in spf.PARTS}
+        line[mode] = {name: {"ms": ms[name], "plain_ms": plain[name],
+                             "bound_ms": bounds[name][0],
+                             "bound_by": bounds[name][1]}
+                      for name in spf.PARTS}
+        if mode == "NTT":
+            results["step_profile"].update(
+                launches=counts["step_profile"], ms=ms["FULL step"],
+                plain_ms=plain["FULL step"],
+                bound_ms=bounds["FULL step"][0],
+                bound_by=bounds["FULL step"][1], library_ms=None)
+    print(json.dumps({"step_profile": line, "batch": b, "card": smi}))
+
+
+def mac_dot_phase(dev, results, e8, smi):
+    """T7 on K7 at 2^14: both forms on the tool's inputs against their plain
+    versions, then ``tools/exp_int8_torch.py`` (chained calls, and the
+    library's products alone beside them); each form's bound."""
+    from nufhe_tpu_torch.ops import mac_dot as md
+    b = TIMING_BATCH
+    rhs, x = e8.inputs(b, dev)
+    plain = {}
+    for form in md.FORMS:
+        got = md.mac_dot(x, rhs[form])
+        want, plain[form] = timed_plain(lambda: md.mac_dot_plain(x, rhs[form]))
+        record_err(results, "mac_dot", "K7 %s vs plain, batch %d"
+                   % (form, b), max_abs_err(got, want))
+        del got, want
+    res, counts = tool_counts("exp_int8_torch, batch %d" % b, "mac_dot",
+                              lambda: e8.run(b, dev))
+    line = {}
+    for form in md.FORMS:
+        if not res[form]["exact"]:
+            raise AssertionError("exp_int8_torch: %s not exact" % form)
+        n_bytes = 2 * x.numel() * 4 + rhs[form].numel() * rhs[
+            form].element_size()
+        bound, by = bound_ms(n_bytes, 2 * 64 * md.C * md.Q * b,
+                             INT8_OPS_PER_S if form == "int8"
+                             else BF16_OPS_PER_S)
+        line[form] = dict(ms=res[form]["ms"], plain_ms=plain[form],
+                          bound_ms=bound, bound_by=by,
+                          library_ms=res[form]["library_ms"],
+                          tops=res[form]["tops"])
+    results["mac_dot"].update(launches=counts["mac_dot"],
+                              **{k: line["int8"][k] for k in (
+                                  "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")})
+    print(json.dumps({"mac_dot": line, "batch": b, "card": smi}))
+
+
+def overlap_phase(dev, results, microbench, eo, smi):
+    """T9 on K8 at 2^14: against its plain version and K1, then
+    ``tools/exp_overlap_torch.py`` (serial K1 and split K8)."""
+    from nufhe_tpu_torch.ops import cmux, step_overlap as so
+    b = TIMING_BATCH
+    acc, p, row, kw = microbench._setup(b, dev, exact=True)
+    got = so.step_overlap(acc, p, row, **kw)
+    want, plain = timed_plain(lambda: so.step_overlap_plain(acc, p, row,
+                                                            **kw))
+    record_err(results, "step_overlap", "K8 vs plain, batch %d" % b,
+               max_abs_err(got, want))
+    record_err(results, "step_overlap", "K8 vs K1, batch %d" % b,
+               max_abs_err(got, cmux.cmux_step(acc, p, row, **kw)))
+    del got, want
+    res, counts = tool_counts("exp_overlap_torch, batch %d" % b,
+                              "step_overlap", lambda: eo.run(b, dev))
+    if not res["exact"]:
+        raise AssertionError("exp_overlap_torch: split not exact")
+    bound, by = part_bound("FULL step", b)
+    results["step_overlap"].update(launches=counts["step_overlap"],
+                                   ms=res["split"], plain_ms=plain,
+                                   bound_ms=bound, bound_by=by,
+                                   library_ms=None)
+    print(json.dumps({"step_overlap": {
+        "serial_ms": res["serial"], "split_ms": res["split"],
+        "plain_ms": plain, "bound_ms": bound, "bound_by": by},
+        "batch": b, "card": smi}))
+
+
+def step_experiments(dev, results, microbench, smi):
+    """Phase ``step_experiments``: T3, T2, T7 and T9 (K6-K9) at 2^14."""
+    import exp_int8_torch as e8
+    import exp_overlap_torch as eo
+    import exp_round4_torch as e4
+    t0 = time.time()
+    context_phase(dev, results, e4, smi)
+    profile_phase(dev, results, microbench, e4, smi)
+    mac_dot_phase(dev, results, e8, smi)
+    overlap_phase(dev, results, microbench, eo, smi)
+    print("step_experiments phase: %.1f s" % (time.time() - t0))
 
 
 def microbench_phase(dev, microbench, smi):
@@ -1704,9 +2013,26 @@ def smoke(nft, smi, dev, rng, oracle_job):
             name="step_parts", route="cuda",
             source="nufhe_tpu_torch/kernels/csrc/step_parts.cu",
             replaces="tools/microbench.py:128"),
+        "step_context": dict(
+            name="step_context", route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/step_context.cu",
+            replaces="tools/exp_round4.py:208"),
+        "mac_dot": dict(
+            name="mac_dot", route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/mac_dot.cu",
+            replaces="tools/exp_int8.py:50"),
+        "step_overlap": dict(
+            name="step_overlap", route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/step_overlap.cu",
+            replaces="tools/exp_overlap.py:118"),
+        "step_profile": dict(
+            name="step_profile", route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/step_profile.cu",
+            replaces="tools/exp_round4.py:70"),
     }
     check_kernels(nft, dev, rng, results)
     check_step_parts(nft, dev, rng, results)
+    check_step_experiments(nft, dev, rng, results)
 
     t0 = time.time()
     secret, cloud, cloud_fft, host_prepared = keygen_on_card(nft, dev)
@@ -1734,6 +2060,7 @@ def smoke(nft, smi, dev, rng, oracle_job):
     import microbench_torch as microbench
     step_parts_timing(dev, results, microbench, smi)
     microbench_phase(dev, microbench, smi)
+    step_experiments(dev, results, microbench, smi)
     run_examples()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -38,6 +38,15 @@ KERNELS = {
                     _I, _I, _I, _I, _I, _I, _I, _P]),
     "step_parts": ("step_parts.cu", "step_parts_launch",
                    [_P, _P, _P, _P, _I, _I, ctypes.c_uint, _I, _I, _P]),
+    "step_context": ("step_context.cu", "step_context_launch",
+                     [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint, _I, _I,
+                      _I, _P]),
+    "mac_dot": ("mac_dot.cu", "mac_dot_launch",
+                [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "step_overlap": ("step_overlap.cu", "step_overlap_launch",
+                     [_P, _P, _P, _P, _I, ctypes.c_uint, _I, _I, _P]),
+    "step_profile": ("step_profile.cu", "step_profile_launch",
+                     [_P, _P, _P, _P, _I, _I, ctypes.c_uint, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

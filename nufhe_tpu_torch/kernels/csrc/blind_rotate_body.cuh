@@ -3,8 +3,12 @@
 // launch, in both engine modes.  The chunked rotation (K3,
 // blind_rotate_chunk.cu) and the per-step kernel (K1, cmux_step.cu: a chunk
 // of 1 on one key row) are both this template, so the two cannot drift
-// apart; so are the stage parts (K5, step_parts.cu: K1 cut after a stage,
-// the template's last argument).
+// apart; so are the stage parts (K5, step_parts.cu, and the rotation-family
+// profile K9, step_profile.cu: K1 cut after a stage, the Part argument),
+// the in-loop stage stand-ins (K6, step_context.cu: K3 with one stage
+// swapped, the Variant argument) and the split-halves step (K8,
+// step_overlap.cu: K1 in another schedule, also the Variant argument).
+// Both arguments' defaults are K1 and K3.
 //
 //   acc' = acc + sum_{g=(o_in,d)} decomp_d((X^p - 1) * acc[o_in]) (*) BK[g, o_out]
 //
@@ -118,8 +122,10 @@ struct Shape {
 
 // The key rows of MAC slot p (frequency rev6(p)), built by the calling
 // warp from the slot's int64 key residues: row (g, o, L) byte 31 - r is
-// limb L of side 0 at rotation r, byte 63 - r that of side 1.
-template <int M, int D, bool kRounded>
+// limb L of side 0 at rotation r, byte 63 - r that of side 1.  Digit
+// polynomials g in [kG0, kG0 + kGn) (all of them but in K8's halves), row
+// g - kG0 of arow.
+template <int M, int D, bool kRounded, int kG0 = 0, int kGn = M * D>
 __device__ __forceinline__ void key_rows(int p,
                                          const long long* __restrict__ key_row,
                                          uint32_t* arow) {
@@ -129,8 +135,8 @@ __device__ __forceinline__ void key_rows(int p,
   const int t = rev6(p);
   uint8_t* rb = reinterpret_cast<uint8_t*>(arow);
 #pragma unroll
-  for (int go = 0; go < S::kG * M; ++go) {
-    const size_t idx = ((size_t)go * kL + t) * kR + lane;
+  for (int go = 0; go < kGn * M; ++go) {
+    const size_t idx = ((size_t)(kG0 * M + go) * kL + t) * kR + lane;
     uint32_t l0[kRows], l1[kRows];
     if constexpr (kRounded) {
       split_rounded(__ldg(key_row + idx), l0);
@@ -150,30 +156,41 @@ __device__ __forceinline__ void key_rows(int p,
 }
 
 // The MAC of one slot p (frequency rev6(p)) for the block's samples; the
-// calling warp owns the slot.
-template <int M, int D, bool kRounded>
+// calling warp owns the slot.  kHalf < 0: over every digit polynomial (K1,
+// K3), the channels written.  K8's split schedule (exact form) runs it
+// twice, over the digit polynomials g of half kHalf = 0 then 1
+// (kHalf * G/2 <= g < (kHalf + 1) * G/2): half 0 writes the lo channel and
+// the hi channel of (sample, o) pairs s*M + o < kS*M/2 over its consumed
+// limbs, the other pairs to hi_x (the second half of the slot's limbs is
+// still being written); half 1 adds into both and leaves the hi channel
+// where K1 leaves it.  build_rows false: the warp's key rows are already
+// in arow (K6's key-split stand-in).
+template <int M, int D, bool kRounded, int kHalf = -1>
 __device__ __forceinline__ void mac_slot(
     int p, const long long* __restrict__ key_row, uint32_t* arow,
-    uint32_t* work, uint32_t* limbs) {
+    uint32_t* work, uint32_t* limbs, bool build_rows = true,
+    uint32_t* hi_x = nullptr) {
   using S = Shape<M, D>;
-  constexpr int kG = S::kG;
+  constexpr int kGn = kHalf < 0 ? S::kG : S::kG / 2;
+  constexpr int kG0 = kHalf < 0 ? 0 : kHalf * kGn;
   constexpr int kS = S::kS;
   constexpr int kRows = kRounded ? 4 : 6;    // limb rows a (g, o)
+  constexpr int kHalfPairs = kS * M / 2;
   const int lane = threadIdx.x & 31;
   const int gid = lane >> 2;
   const int tig = lane & 3;
 
-  key_rows<M, D, kRounded>(p, key_row, arow);
+  if (build_rows) key_rows<M, D, kRounded, kG0, kGn>(p, key_row, arow);
 
   // B fragments: sample gid's limbs i of digit polynomial g, bytes
   // 4tig..4tig+3 and 16+4tig..+3 (samples past kS are zero columns)
   const uint32_t* reg = limbs + p * S::kRegionWords;
-  uint32_t bf[kG][2][2];
+  uint32_t bf[kGn][2][2];
 #pragma unroll
-  for (int g = 0; g < kG; ++g)
+  for (int g = 0; g < kGn; ++g)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const uint32_t* w = reg + ((g * 2 + i) * kS + gid) * 8;
+      const uint32_t* w = reg + (((kG0 + g) * 2 + i) * kS + gid) * 8;
       bf[g][i][0] = gid < kS ? w[tig] : 0u;
       bf[g][i][1] = gid < kS ? w[tig + 4] : 0u;
     }
@@ -195,7 +212,7 @@ __device__ __forceinline__ void mac_slot(
 #pragma unroll
         for (int e = 0; e < 4; ++e) d[tile][s][e] = 0;
 #pragma unroll
-    for (int g = 0; g < kG; ++g) {
+    for (int g = 0; g < kGn; ++g) {
 #pragma unroll
       for (int L = 0; L < kRows; ++L) {
         const uint32_t* row =
@@ -240,20 +257,35 @@ __device__ __forceinline__ void mac_slot(
                             ((uint32_t)d[tile][a + 1][e] << 8) +
                             ((uint32_t)d[tile][a + 2][e] << 16) +
                             ((uint32_t)d[tile][a + 3][e] << 24);
-        work[n * S::kWorkWords + (o * kL + p) * kR + k] = lo;
-        if (!kRounded)
-          limbs[p * S::kRegionWords + (n * M + o) * kR + k] =
-              (uint32_t)d[tile][0][e];
+        uint32_t* wl = work + n * S::kWorkWords + (o * kL + p) * kR + k;
+        uint32_t* hl = limbs + p * S::kRegionWords + (n * M + o) * kR + k;
+        const uint32_t hi = (uint32_t)d[tile][0][e];
+        if constexpr (kHalf < 0) {
+          *wl = lo;
+          if (!kRounded) *hl = hi;
+        } else {
+          const int pair = n * M + o;
+          uint32_t* hx = hi_x + (p * kHalfPairs + pair - kHalfPairs) * kR + k;
+          if constexpr (kHalf == 0) {
+            *wl = lo;
+            if (pair < kHalfPairs) *hl = hi;
+            else *hx = hi;
+          } else {
+            *wl += lo;
+            *hl = (pair < kHalfPairs ? *hl : *hx) + hi;
+          }
+        }
       }
   }
   __syncwarp();   // the next slot rewrites the key rows
 }
 
 // Where a launch stops the step.  K1 and K3 run it whole (kFull, the
-// default); K5 (step_parts.cu) cuts it after a stage, at (2, 2) exact, to
-// time the stages apart, so each part is a prefix of this kernel's own
-// code.  A part writes an output that depends on all the work it does
-// (step_parts.cu lists them):
+// default); K5 (step_parts.cu, exact) and K9 (step_profile.cu, both forms)
+// cut it after a stage, at (2, 2), to time the stages apart, so each part
+// is a prefix of this kernel's own code.  A part writes an output that
+// depends on all the work it does (step_parts.cu and step_profile.cu list
+// them):
 enum Part : int {
   kRotate = 0,         // (X^p - 1) * acc                        (B, M, N)
   kRotDecomp = 1,      // its signed gadget digits, g = o*D + d   (B, G, N)
@@ -263,35 +295,80 @@ enum Part : int {
   kInvOnly = 5,        // inverse and fold of a stand-in channel, into acc
   kDecFwdMacInv = 6,   // acc's digits (no rotation) times the key row
   kFull = 7,           // the CMUX step
+  kNoop = 8,           // acc + 1                                 (B, M, N)
+  kRotBits0 = 9,       // X^(p & 0x1F) * acc (no -1)              (B, M, N)
+  kRotBits1 = 10,      // X^(p & 0xE0) * acc
+  kRotBits2 = 11,      // X^(p & 0x300) * acc
+  kRotDecFwd = 12,     // 2 on the rotation's digits
+  kRotDecFwdKey = 13,  // 3 on the rotation's digits
+  kRotDecFwdMac = 14,  // 4 on the rotation's digits
 };
+
+// The stage a part stops after (its rotating forms are K5's parts)
+__host__ __device__ constexpr int stage_of(int p) {
+  return p == kRotDecFwd ? kDecFwd
+         : p == kRotDecFwdKey ? kDecFwdKey
+         : p == kRotDecFwdMac ? kDecFwdMac : p;
+}
+
+__host__ __device__ constexpr bool rot_bits(int p) {
+  return p == kRotBits0 || p == kRotBits1 || p == kRotBits2;
+}
 
 template <int P, int M, int D>
 struct PartOut {
-  static constexpr bool kRotates = P == kRotate || P == kRotDecomp || P == kFull;
+  static constexpr bool kRotates = P == kRotate || P == kRotDecomp ||
+                                   P == kFull || P == kRotDecFwd ||
+                                   P == kRotDecFwdKey || P == kRotDecFwdMac;
   // the accumulator is the output (else a folded buffer in `work`)
   static constexpr bool kFromAcc =
-      P == kInvOnly || P == kDecFwdMacInv || P == kFull;
+      P == kInvOnly || P == kDecFwdMacInv || P == kFull || P == kNoop;
   // output polynomials a sample, and the work polynomials summed into one
   static constexpr int kPolys = P == kRotDecomp ? M * D : M;
   static constexpr int kSum =
-      P == kDecFwd ? D : (P == kDecFwdKey || P == kDecFwdMac) ? 2 : 1;
+      stage_of(P) == kDecFwd ? D
+      : (stage_of(P) == kDecFwdKey || stage_of(P) == kDecFwdMac) ? 2 : 1;
+};
+
+// How the whole step (kFull) runs inside the chunk loop.  kAsIs is K1 and
+// K3.  K6 (step_context.cu) swaps one stage for a cheap, shape-correct,
+// deterministic stand-in, so that the full step minus the variant is that
+// stage's cost inside the loop; K8 (step_overlap.cu) runs the exact step
+// in the split-halves schedule (split_halves), bit-equal to K1:
+enum Variant : int {
+  kAsIs = 0,           // the step
+  kNoopStep = 1,       // acc + 1 (the loop's own cost)
+  kDotOnly = 2,        // the MAC alone: its limbs the bytes of acc's words
+                       // (kNoForward's slot layout, kNoLimbSplit's split),
+                       // its channels folded into acc (kNoInverse)
+  kNoRotation = 3,     // the digits of acc itself (forward_digits<false>)
+  kNoForward = 4,      // digit block j in slots j and j + 32, no DIT
+  kNoLimbSplit = 5,    // limbs a0 = (int8) x, a1 = (int8) (x >> 8)
+  kNoDecomp = 6,       // every digit (v & base_mask) - half
+  kNoInverse = 7,      // the channels folded into acc: slot p' + slot
+                       // p' + 32 (lo, and hi exact) at q-layout p'*32 + k
+  kNoKeySplit = 8,     // key_rows once, for the warp's first slot at the
+                       // launch's first step; every slot p then reads the
+                       // rows of slot p % warps
+  kSplitHalves = 9,    // K8: forward g < G/2; its MAC beside the forward of
+                       // g >= G/2; their MAC; the inverse
 };
 
 // kDecFwdKey's stand-in for the MAC of slot p: the slot's key rows
 // (key_rows), then one read of each row word and of the slot's digit
 // limbs; the lo channel of every (sample, o) gets the sum.
-template <int M, int D>
+template <int M, int D, bool kRounded = false>
 __device__ __forceinline__ void key_slot(int p,
                                          const long long* __restrict__ key_row,
                                          uint32_t* arow, uint32_t* work,
                                          const uint32_t* limbs) {
   using S = Shape<M, D>;
   const int lane = threadIdx.x & 31;
-  key_rows<M, D, false>(p, key_row, arow);
+  key_rows<M, D, kRounded>(p, key_row, arow);
   __syncwarp();
   uint32_t ksum = 0;
 #pragma unroll
-  for (int r = 0; r < S::kG * M * 6; ++r)
+  for (int r = 0; r < S::kG * M * (kRounded ? 4 : 6); ++r)
     ksum += arow[r * kRowWords + (lane & 15)];
   const int8_t* lb =
       reinterpret_cast<const int8_t*>(limbs + p * S::kRegionWords);
@@ -309,7 +386,113 @@ __device__ __forceinline__ void key_slot(int p,
   __syncwarp();   // the next slot rewrites the key rows
 }
 
-template <int M, int D, bool kRounded, int kPart = kFull>
+// K6's stand-ins for the stages up to the forward transform, in place of
+// forward_digits: x[f] as the forward would leave it (stored to slot
+// rev6(f)); see Variant.
+template <int V>
+__device__ __forceinline__ void forward_stand_in(const uint32_t* a, int p,
+                                                 int shift, uint32_t offset,
+                                                 int base_mask, int half,
+                                                 int lane, int (&x)[kL]) {
+  if constexpr (V == kNoRotation) {
+    forward_digits<false>(a, p, shift, offset, base_mask, half, lane, x);
+  } else if constexpr (V == kNoDecomp) {
+#pragma unroll
+    for (int j = 0; j < kL / 2; ++j) {
+      x[rev6c(j)] =
+          (int)(rotated_coeff(a, p, j, lane) & (uint32_t)base_mask) - half;
+      x[rev6c(j) + 1] = 0;
+    }
+    dft_regs<int, false>(x, lane);
+  } else {
+    // block j to slots j and j + 32: frequencies rev6(j) and rev6(j) + 1
+#pragma unroll
+    for (int j = 0; j < kL / 2; ++j) {
+      int v;
+      if constexpr (V == kDotOnly)
+        v = (int)rotated_coeff<false>(a, p, j, lane);
+      else
+        v = gadget_digit(rotated_coeff(a, p, j, lane), shift, offset,
+                         base_mask, half);
+      x[rev6c(j)] = v;
+      x[rev6c(j) + 1] = v;
+    }
+  }
+}
+
+// A warp's key rows in words: K8's halves hold G/2 digit polynomials
+template <int M, int D, bool kRounded, int V>
+__host__ __device__ constexpr int arow_words() {
+  return (V == kSplitHalves ? M * D / 2 : M * D) * M * (kRounded ? 4 : 6) *
+         kRowWords;
+}
+
+// K8's hi channel of the pairs s*M + o >= kS*M/2 between its two MACs
+template <int M, int D, int V>
+__host__ __device__ constexpr int hi_x_words() {
+  return V == kSplitHalves ? kL * Shape<M, D>::kS * M / 2 * kR : 0;
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// K8's phases 1-4 (exact form): the first kS*G/2 warps run the rotation,
+// digits, forward and limb split of the digit polynomials g < G/2 of
+// their sample, arrive at named barrier 1 and go on to those of g >= G/2;
+// the other warps wait at barrier 1 and meanwhile run the MAC of the
+// first half (mac_slot half 0); then every warp runs the MAC of the second
+// half (half 1), which adds into the channels.  Afterwards the channels
+// are K1's, so the inverse follows unchanged.  p_row: the step's rotation
+// amounts of the block's samples.
+template <int M, int D>
+__device__ __forceinline__ void split_halves(
+    const uint32_t* acc_s, const int32_t* __restrict__ p_row, int ns,
+    const long long* __restrict__ key_row, uint32_t* arow, uint32_t* work,
+    uint32_t* limbs, uint32_t* hi_x, uint32_t offset, int log2_base,
+    int base_mask, int half) {
+  using S = Shape<M, D>;
+  constexpr int kHalfG = S::kG / 2;
+  constexpr int kFwd = S::kS * kHalfG;
+  static_assert(2 * kFwd == S::kWarps, "half the warps run the forward");
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < kFwd) {
+    const int s = warp / kHalfG;
+    const int p = s < ns ? (__ldg(p_row + s) & (2 * kN - 1)) : 0;
+    uint8_t* lb = reinterpret_cast<uint8_t*>(limbs);
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      const int g = h * kHalfG + warp % kHalfG;
+      const uint32_t* a = acc_s + s * S::kAccWords + (g / D) * kN;
+      const int shift = 32 - (g % D + 1) * log2_base;
+      int x[kL];
+      forward_digits<true>(a, p, shift, offset, base_mask, half, lane, x);
+#pragma unroll
+      for (int f = 0; f < kL; ++f) {
+        uint8_t* reg =
+            lb + rev6c(f) * S::kRegionWords * 4 + (g * 2 * S::kS + s) * 32;
+        reg[lane] = (uint8_t)limb0(x[f]);
+        reg[S::kS * 32 + lane] = (uint8_t)limb1(x[f]);
+      }
+      if (h == 0) bar_arrive(1, S::kThreads);
+    }
+  } else {
+    bar_sync(1, S::kThreads);
+    for (int p = warp - kFwd; p < kL; p += kFwd)
+      mac_slot<M, D, false, 0>(p, key_row, arow, work, limbs, true, hi_x);
+  }
+  __syncthreads();
+  for (int p = warp; p < kL; p += S::kWarps)
+    mac_slot<M, D, false, 1>(p, key_row, arow, work, limbs, true, hi_x);
+  __syncthreads();
+}
+
+template <int M, int D, bool kRounded, int kPart = kFull, int kVariant = kAsIs>
 __global__ void __launch_bounds__(Shape<M, D>::kThreads, 1)
 blind_rotate_kernel(const int32_t* __restrict__ acc_in,
                     int32_t* __restrict__ acc_out,
@@ -318,24 +501,29 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
                     int chunk, uint32_t offset, int log2_base) {
   using S = Shape<M, D>;
   using O = PartOut<kPart, M, D>;
+  constexpr int kStage = stage_of(kPart);
+  constexpr bool kStandInLimbs =
+      kVariant == kNoLimbSplit || kVariant == kDotOnly;
+  constexpr bool kStandInInverse =
+      kVariant == kNoInverse || kVariant == kDotOnly;
   constexpr int kG = S::kG;
   constexpr int kS = S::kS;
   constexpr int kWarps = S::kWarps;
   constexpr int kThreads = S::kThreads;
   constexpr int kAccWords = S::kAccWords;
-  constexpr int kRows = kRounded ? 4 : 6;
   constexpr int kKeyRow = kRounded ? 2 * S::kSide : S::kSide;  // a step
   constexpr int kChanRoles = (kRounded ? 1 : 2) * kS * M;
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* acc_s = smem;                        // [kS][M][1024] q-layout
   uint32_t* work = acc_s + kS * kAccWords;       // [kS][M][64][32]
   uint32_t* limbs = work + kS * S::kWorkWords;   // [64 slots][kRegionWords]
-  uint32_t* arows = limbs + kL * S::kRegionWords;   // [warps][G*M][kRows][16]
+  uint32_t* arows = limbs + kL * S::kRegionWords;   // [warps][G*M][rows][16]
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int b0 = blockIdx.x * kS;
   const int ns = min(kS, batch - b0);
-  uint32_t* arow = arows + warp * (kG * M * kRows * kRowWords);
+  uint32_t* arow = arows + warp * arow_words<M, D, kRounded, kVariant>();
+  uint32_t* hi_x = arows + kWarps * arow_words<M, D, kRounded, kVariant>();
 
   for (int e = tid; e < kS * kAccWords; e += kThreads) {
     const int s = e / kAccWords;
@@ -353,10 +541,16 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
     const size_t step = (size_t)(start + st);
     const long long* key_row = key + step * kKeyRow;
 
+    if constexpr (kPart == kNoop || kVariant == kNoopStep) {
+      for (int e = tid; e < kS * kAccWords; e += kThreads) acc_s[e] += 1u;
+      __syncthreads();
+      continue;
+    }
+
     // 1-3. a warp a (sample, digit polynomial g = o*D + d): rotation,
     // digit and forward transform in registers, the split into int8 limbs
     // a0, a1 by MAC slot p = rev6(frequency)
-    if constexpr (kPart != kInvOnly) {
+    if constexpr (kPart != kInvOnly && kVariant != kSplitHalves) {
       if (S::kDigitRoles == kWarps || warp < S::kDigitRoles) {
         const int s = warp / kG;
         const int g = warp % kG;
@@ -364,12 +558,19 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
             ? (__ldg(bara_t + step * batch + b0 + s) & (2 * kN - 1)) : 0;
         const uint32_t* a = acc_s + s * kAccWords + (g / D) * kN;
         const int shift = 32 - (g % D + 1) * log2_base;
-        if constexpr (kPart == kRotate || kPart == kRotDecomp) {
+        if constexpr (kPart == kRotate || kPart == kRotDecomp ||
+                      rot_bits(kPart)) {
           // coefficient lane*32 + j at q-layout j*32 + lane
 #pragma unroll
           for (int j = 0; j < kL / 2; ++j) {
-            const uint32_t v = rotated_coeff(a, p, j, lane);
-            if constexpr (kPart == kRotate)
+            uint32_t v;
+            if constexpr (rot_bits(kPart))
+              v = rotated_coeff<true, false>(
+                  a, p & (kPart == kRotBits0   ? 0x1F
+                          : kPart == kRotBits1 ? 0xE0 : 0x300), j, lane);
+            else
+              v = rotated_coeff(a, p, j, lane);
+            if constexpr (kPart != kRotDecomp)
               work[(s * M + g / D) * kN + j * 32 + lane] = v;
             else
               work[(s * kG + g) * kN + j * 32 + lane] =
@@ -377,9 +578,14 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
           }
         } else {
           int x[kL];
-          forward_digits<O::kRotates>(a, p, shift, offset, base_mask, half,
-                                      lane, x);
-          if constexpr (kPart == kDecFwd) {
+          if constexpr (kVariant == kAsIs || kVariant == kNoLimbSplit ||
+                        kVariant == kNoInverse || kVariant == kNoKeySplit)
+            forward_digits<O::kRotates>(a, p, shift, offset, base_mask, half,
+                                        lane, x);
+          else
+            forward_stand_in<kVariant>(a, p, shift, offset, base_mask, half,
+                                       lane, x);
+          if constexpr (kStage == kDecFwd) {
             // frequencies 2m and 2m + 1 lie in slots rev6(2m) and + 32
 #pragma unroll
             for (int m = 0; m < kL / 2; ++m)
@@ -391,8 +597,13 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
             for (int f = 0; f < kL; ++f) {
               uint8_t* reg =
                   lb + rev6c(f) * S::kRegionWords * 4 + (g * 2 * kS + s) * 32;
-              reg[lane] = (uint8_t)limb0(x[f]);
-              reg[kS * 32 + lane] = (uint8_t)limb1(x[f]);
+              if constexpr (kStandInLimbs) {
+                reg[lane] = (uint8_t)x[f];
+                reg[kS * 32 + lane] = (uint8_t)(x[f] >> 8);
+              } else {
+                reg[lane] = (uint8_t)limb0(x[f]);
+                reg[kS * 32 + lane] = (uint8_t)limb1(x[f]);
+              }
             }
           }
         }
@@ -400,18 +611,25 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
       __syncthreads();
     }
 
-    // 4. the MAC, a warp a slot (kDecFwdKey: its stand-in)
-    if constexpr (kPart == kDecFwdKey) {
+    // 4. the MAC, a warp a slot (kDecFwdKey: its stand-in; K8: phases 1-4
+    // in the split schedule)
+    if constexpr (kVariant == kSplitHalves) {
+      split_halves<M, D>(acc_s, bara_t + step * batch + b0, ns, key_row,
+                         arow, work, limbs, hi_x, offset, log2_base,
+                         base_mask, half);
+    } else if constexpr (kStage == kDecFwdKey) {
       for (int p = warp; p < kL; p += kWarps)
-        key_slot<M, D>(p, key_row, arow, work, limbs);
+        key_slot<M, D, kRounded>(p, key_row, arow, work, limbs);
       __syncthreads();
-    } else if constexpr (kPart == kDecFwdMac || kPart == kDecFwdMacInv ||
+    } else if constexpr (kStage == kDecFwdMac || kPart == kDecFwdMacInv ||
                          kPart == kFull) {
       for (int p = warp; p < kL; p += kWarps)
-        mac_slot<M, D, kRounded>(p, key_row, arow, work, limbs);
+        mac_slot<M, D, kRounded>(
+            p, key_row, arow, work, limbs,
+            kVariant != kNoKeySplit || (st == 0 && p == warp));
       __syncthreads();
     }
-    if constexpr (kPart == kDecFwdMac) {
+    if constexpr (kStage == kDecFwdMac && !kRounded) {
       // the hi channel (over the slots' limbs) onto the lo channel
       for (int e = tid; e < kS * S::kWorkWords; e += kThreads)
         work[e] += limbs[((e >> 5) & (kL - 1)) * S::kRegionWords +
@@ -423,8 +641,20 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
     // form): the inverse transform and the fold, coefficient i*32 + j at
     // q-layout j*32 + i; hi >> 6 waits in its rows 0..31, lo + (hi >> 6)
     // (or lo) is added to the accumulator (kDecFwdMacInv: in its place;
-    // kInvOnly: the stand-in channel is acc's q-layout polynomial, twice)
-    if constexpr (O::kFromAcc) {
+    // kInvOnly: the stand-in channel is acc's q-layout polynomial, twice;
+    // K6's inverse stand-in: the channels' fold, into acc)
+    if constexpr (kStandInInverse) {
+      for (int e = tid; e < kS * kAccWords; e += kThreads) {
+        const uint32_t* w = work + (e >> 10) * kL * kR + (e & (kN - 1));
+        uint32_t v = w[0] + w[kN];
+        if constexpr (!kRounded) {
+          const uint32_t* h = limbs + (e >> 10) * kR + (e & 31) +
+                              ((e >> 5) & 31) * S::kRegionWords;
+          v += h[0] + h[32 * S::kRegionWords];
+        }
+        acc_s[e] += v;
+      }
+    } else if constexpr (O::kFromAcc) {
       const bool role = kChanRoles == kWarps || warp < kChanRoles;
       const bool hi_warp = warp >= kS * M;
       const int so = warp % (kS * M);            // s * M + o
@@ -487,22 +717,22 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
   }
 }
 
-template <int M, int D, bool kRounded, int kPart = kFull>
+template <int M, int D, bool kRounded, int kPart = kFull, int kVariant = kAsIs>
 cudaError_t launch(const int32_t* acc_in, int32_t* acc_out,
                    const int32_t* bara_t, const long long* key, int batch,
                    int start, int chunk, uint32_t offset, int log2_base,
                    cudaStream_t stream) {
   using S = Shape<M, D>;
-  constexpr int kRows = kRounded ? 4 : 6;
   const int smem = (S::kS * (S::kAccWords + S::kWorkWords) +
                     kL * S::kRegionWords +
-                    S::kWarps * S::kG * M * kRows * kRowWords) *
+                    S::kWarps * arow_words<M, D, kRounded, kVariant>() +
+                    hi_x_words<M, D, kVariant>()) *
                    (int)sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      blind_rotate_kernel<M, D, kRounded, kPart>,
+      blind_rotate_kernel<M, D, kRounded, kPart, kVariant>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  blind_rotate_kernel<M, D, kRounded, kPart>
+  blind_rotate_kernel<M, D, kRounded, kPart, kVariant>
       <<<(batch + S::kS - 1) / S::kS, S::kThreads, smem, stream>>>(
           acc_in, acc_out, bara_t, key, batch, start, chunk, offset,
           log2_base);

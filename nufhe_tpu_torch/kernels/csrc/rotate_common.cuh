@@ -115,8 +115,10 @@ __device__ __forceinline__ void dft_regs(T (&x)[kL], int lane) {
 
 // Coefficient lane*32 + j of (X^p - 1) * a, for one accumulator polynomial
 // `a` (q-layout, shared memory); of `a` itself when kRot is false (the
-// stage parts of K5 that leave the rotation out, step_parts.cu).
-template <bool kRot = true>
+// stage parts of K5 that leave the rotation out, step_parts.cu); of
+// X^p * a when kMinusOne is false (K9's rotation families,
+// step_profile.cu).
+template <bool kRot = true, bool kMinusOne = true>
 __device__ __forceinline__ uint32_t rotated_coeff(const uint32_t* a, int p,
                                                   int j, int lane) {
   const uint32_t own = a[j * 32 + lane];
@@ -124,6 +126,7 @@ __device__ __forceinline__ uint32_t rotated_coeff(const uint32_t* a, int p,
   const int src = (lane * 32 + j - p) & (2 * kN - 1);
   uint32_t v = a[q_of(src & (kN - 1))];
   if (src >= kN) v = 0u - v;
+  if constexpr (!kMinusOne) return v;
   return v - own;
 }
 

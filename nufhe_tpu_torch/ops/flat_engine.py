@@ -142,12 +142,26 @@ def mac_channels(digits, rhs_row, *, mask1, g_total, slot_start=0):
         2^32, ch 1 (exact form only) is hi = B.
     """
     rows = digits.shape[0]
-    n_groups = key_groups(rhs_row.shape[-1], mask1)
     l_local = rhs_row.shape[-3]
     xt = dif_forward_q(digits, n_poly=g_total).reshape(rows, g_total, L, R)
     xt = xt[:, :, slot_start:slot_start + l_local]
     a0 = ((xt + 128) & 255) - 128
     a1 = (xt - a0) >> 8
+    return limb_channels(a0, a1, rhs_row, mask1=mask1)
+
+
+def limb_channels(a0, a1, rhs_row, *, mask1):
+    """The per-slot MAC of the digits' int8 limbs against the key operand
+    and its two channels (the rest of :func:`mac_channels`).
+
+    :param a0, a1: (rows, g, L_local, R) integer tensors in [-128, 128),
+        the limbs of the transformed digits, slot order.
+    :param rhs_row: as in :func:`mac_channels`, C = g*2R.
+    :returns: (rows, n_ch, mask1, L_local, R) int32, as
+        :func:`mac_channels`.
+    """
+    rows, g_total, l_local = a0.shape[:3]
+    n_groups = key_groups(rhs_row.shape[-1], mask1)
     # lhs[b, t, c], c = g*2R + i*R + u
     lhs = torch.stack([a0, a1], dim=2).permute(0, 3, 1, 2, 4)
     lhs = lhs.reshape(rows, l_local, g_total * tf.ACC_LIMBS * R).to(

@@ -64,32 +64,43 @@ def out_polys(name):
 
 
 def _key_limbs(key_row):
-    """The exact key row's two-sided limbs (G, O, L, R, 5, 2) as a numpy
-    array (``ops/transform.key_limbs_host`` of its residues mod 2^38)."""
-    return tf.key_limbs_host(key_row.cpu().numpy().astype(np.uint64))
+    """A key row's two-sided limbs (G, O, L, R, KL, 2) as a numpy array, as
+    the kernels split it on chip: exact (G, O, L, R), KL = 5,
+    ``ops/transform.key_limbs_host`` of its residues mod 2^38; rounded (2,
+    G, O, L, R), KL = 4, the balanced radix-2^8 digits of round(x/64) mod
+    2^32 of each side x."""
+    k = key_row.cpu().numpy()
+    if key_row.dim() == 4:
+        return tf.key_limbs_host(k.astype(np.uint64))
+    return np.stack([tf._limb_split_38(k[0], exact=False),
+                     tf._limb_split_38(k[1], exact=False)], axis=-1)
 
 
 def mac_operand(key_row):
-    """The exact key row's int8 MAC operand (L, G*2R, 5*O*R), slots in
-    bit-reversed order (``ops/transform.build_mac_rhs``): what K5 and K3
-    build on chip."""
+    """A key row's int8 MAC operand (L, G*2R, KL*O*R), slots in bit-reversed
+    order (``ops/transform.build_mac_rhs``): what K1 and K3 build on chip;
+    the row's shape selects the form, as for K1."""
     return tf.build_mac_rhs(torch.from_numpy(_key_limbs(key_row))).to(
         key_row.device)
 
 
 def _key_row_sums(key_row):
     """"dec+fwd+key"'s key term: (L, R) int64, slot p and lane k, the sum
-    mod 2^32 of the words k & 15 of the slot's 48 limb rows (g, o, limb:
-    vlo, vhi_0..3, 4*vlo), each a reversed 64-byte row, byte 31 - r the
-    limb of side 0 (+v) at rotation r and byte 63 - r that of side 1."""
+    mod 2^32 of the words k & 15 of the slot's limb rows (g, o, limb: vlo,
+    vhi_0..3, 4*vlo exact, 48 rows; vhi_0..3 rounded, 32 rows), each a
+    reversed 64-byte row, byte 31 - r the limb of side 0 (+v) at rotation r
+    and byte 63 - r that of side 1."""
     limbs = _key_limbs(key_row).astype(np.int64)
-    limbs = np.concatenate([limbs, 4 * limbs[..., :1, :]], axis=-2) & 255
-    limbs = limbs.reshape(G * MASK1, L, R, 6, 2)[:, tf.BITREV_L]
-    rows = np.zeros((L, G * MASK1, 6, 64), np.int64)
+    if key_row.dim() == 4:
+        limbs = np.concatenate([limbs, 4 * limbs[..., :1, :]], axis=-2)
+    limbs &= 255
+    rows_go = limbs.shape[-2]
+    limbs = limbs.reshape(G * MASK1, L, R, rows_go, 2)[:, tf.BITREV_L]
+    rows = np.zeros((L, G * MASK1, rows_go, 64), np.int64)
     lane = np.arange(R)
     rows[..., 31 - lane] = limbs[..., 0].transpose(1, 0, 3, 2)
     rows[..., 63 - lane] = limbs[..., 1].transpose(1, 0, 3, 2)
-    words = (rows.reshape(L, G * MASK1, 6, 16, 4)
+    words = (rows.reshape(L, G * MASK1, rows_go, 16, 4)
              << (8 * np.arange(4))).sum(-1)
     sums = words.sum(axis=(1, 2)) & 0xFFFFFFFF             # (p, 16)
     return torch.from_numpy(sums[:, lane & 15]).to(key_row.device)
@@ -102,12 +113,16 @@ def _fold(x):
         torch.int64).sum(2))
 
 
-def step_part_plain(name, acc, p, key_row, *, offset, log2_base):
+def step_part_plain(name, acc, p, key_row, *, offset, log2_base,
+                    rotate=False):
     """Plain PyTorch version of K5, any device: part ``name`` composed of
-    ``ops/flat_engine``'s stage functions."""
+    ``ops/flat_engine``'s stage functions.  ``rotate``: "dec+fwd",
+    "dec+fwd+key" and "dec+fwd+mac" on the digits of (X^p - 1) * acc (K9's
+    rotating forms).  Either key form (K9); the rounded one has no hi
+    channel."""
     bsz = acc.shape[0]
     acc_q = fe.q_from_n(acc).reshape(bsz, MASK1 * N)
-    if name in ("rotate", "rot+decomp", "FULL step"):
+    if name in ("rotate", "rot+decomp", "FULL step") or rotate:
         src = fe.rotate_q(acc_q, p, minus_one=True)
     else:
         src = acc_q

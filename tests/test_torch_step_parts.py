@@ -206,7 +206,9 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", [
-    "tools/microbench_torch.py", "examples/gate_nand_torch.py",
+    "tools/microbench_torch.py", "tools/exp_round4_torch.py",
+    "tools/exp_int8_torch.py", "tools/exp_overlap_torch.py",
+    "examples/gate_nand_torch.py",
     "examples/gate_nand_low_level_torch.py", "examples/integer_adder_torch.py",
     "examples/serialization_torch.py", "examples/transform_modes_torch.py"])
 def test_port_scripts_import_neither_jax_nor_nufhe_tpu(path):
