@@ -31,7 +31,13 @@ and prints no result line):
    (``ops/step_profile``, the rotation-family profile): every part in
    both forms, its FULL step also against K1; K8 (``ops/step_overlap``,
    the split-halves step) against its plain version and K1; K7
-   (``ops/mac_dot``, the MAC dot alone) in its int8 and bf16 forms;
+   (``ops/mac_dot``, the MAC dot alone) in its int8 and bf16 forms; at
+   batch 101 and 256 K10 (``ops/step_schedules``, K1 in seven schedules)
+   in both key forms against its plain version and K1, K11
+   (``ops/step_tricks``) and K12 (``ops/rotate_forms``), K3 with a stage
+   in another form, 3 steps in both forms against their plain versions
+   and K3 (K11's t8 and t8+t9 on the evened powers), and K13
+   (``ops/inverse_probe``, the inverse alone) every probe;
 4. keygen at the default parameters (n=500, N=1024): ``make_key_pair``
    with its default placement, on the card, and with ``on_device=False``,
    on the host, from one seed, each synchronised, the card's split by a
@@ -66,7 +72,9 @@ and prints no result line):
    bit for bit; ``oracle``: 8 NAND inputs at n=500 on the default, the
    per-step and the lanes path, both modes, equal in a and b, bit for bit,
    to the numpy oracle ``ref/bootstrap_ref.bootstrap`` (which shares no
-   code with the kernels' paths), cv within ``utils.errors_allclose``; the
+   code with the kernels' paths), cv within ``utils.errors_allclose``, and
+   the default NAND with ``coarse_phase_bits=1`` (even rotation amounts)
+   to ``bootstrap_ref.bootstrap(..., coarse_phase_bits=1)``; the
    oracle runs in a worker process started at the top of ``main`` (host
    keygen of the same seed, the encryptions, both modes) and is joined
    after phase 8, so that it overlaps the card phases;
@@ -145,7 +153,15 @@ and prints no result line):
    ``tools/exp_int8_torch.py`` (chained calls, the library's products
    alone beside them); T9 (K8) against its plain version and K1, then
    ``tools/exp_overlap_torch.py`` (K1 serial, K8 split);
-13. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
+13. ``step_variants``, at 2^14 in both engines, the same way: T5 (K10)
+   every schedule against K1 and "v3" against its plain version, then
+   ``tools/exp_round3_torch.py``; T4 (K11) and T6 (K12) every variant at
+   100 steps in one launch against one K3 launch of 100 steps (t8 and
+   t8+t9 on the evened powers), the first variant at 4 steps against its
+   plain version, then ``tools/exp_round4_torch.py tricks`` and
+   ``tools/exp_round5_torch.py``; T8 (K13) every probe against its plain
+   version, then ``tools/exp_inverse_torch.py``; each part's seconds;
+14. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The bound of a kernel is the larger of its bytes (each input read once,
@@ -160,10 +176,12 @@ such units (its tensor-core form's int8 operations are printed beside
 it: they take longer).  A kernel's ``launches`` in the JSON line is its
 count in the gate of the path that runs it (K1: the per-step path; K2
 and K3: the default path; K4: the lanes path); K5's is its count on the
-microbenchmark's path (``parts``), which is where it runs, and K6-K9's
-theirs on their tools' paths ('NTT'; K7 int8).  K6's ms, plain ms and
-bound in that line are at 4 steps, the length at which its plain version
-runs at 2^14; its 100-step times are in its own line.  K7's library time
+microbenchmark's path (``parts``), which is where it runs, and K6-K13's
+theirs on their tools' paths ('NTT'; K7 int8).  K6's, K11's and K12's ms,
+plain ms and bound in that line are at 4 steps, the length at which their
+plain versions run at 2^14 (K11's and K12's of their first variant, t10
+and t11); their 100-step times are in their own lines.  K10's are its
+"v3" schedule's (K1's code), K13's its "sliced" probe's (K3's DIT).  K7's library time
 is its products alone (64 ``torch._int_mm``), a part of its work.  The
 collectives between the grids of a tensor-parallel step are counted apart
 (``lanes_step.collectives``).
@@ -189,13 +207,16 @@ N_LWE = 500                # n: the blind rotation's steps
 CHUNK = 50                 # the default path's steps per K3 launch
 KERNEL_NAMES = ("cmux_step", "keyswitch", "blind_rotate_chunk",
                 "lanes_step", "step_parts", "step_context", "mac_dot",
-                "step_overlap", "step_profile")
-# K5-K9 run on the experiment tools' paths, not on a gate's
+                "step_overlap", "step_profile", "step_schedules",
+                "step_tricks", "rotate_forms", "inverse_probe")
+# K5-K13 run on the experiment tools' paths, not on a gate's
 GATE_KERNELS = KERNEL_NAMES[:4]
 CONTEXT_STEPS = 100        # K6's timed rotation (tools/exp_round4.py:181)
-CHECK_STEPS = 4            # K6's steps against its plain version at 2^14
+CHECK_STEPS = 4            # K6's, K11's and K12's steps against their plain
+                           # versions at 2^14
 BF16_OPS_PER_S = 989e12
 ORACLE_INPUTS = 8          # inputs of the n=500 bootstrap held to the oracle
+COARSE_BITS = 1            # the coarse modulus switch held to the oracle
 EXAMPLES = ("gate_nand_torch.py", "gate_nand_low_level_torch.py",
             "integer_adder_torch.py", "serialization_torch.py",
             "transform_modes_torch.py")
@@ -253,14 +274,18 @@ def max_abs_err(x, y):
 
 
 def counters():
-    from nufhe_tpu_torch.ops import (blind_rotate, cmux, keyswitch,
-                                     lanes_step, mac_dot, step_context,
-                                     step_overlap, step_parts, step_profile)
+    from nufhe_tpu_torch.ops import (blind_rotate, cmux, inverse_probe,
+                                     keyswitch, lanes_step, mac_dot,
+                                     rotate_forms, step_context,
+                                     step_overlap, step_parts, step_profile,
+                                     step_schedules, step_tricks)
     return {"cmux_step": cmux, "keyswitch": keyswitch,
             "blind_rotate_chunk": blind_rotate, "lanes_step": lanes_step,
             "step_parts": step_parts, "step_context": step_context,
             "mac_dot": mac_dot, "step_overlap": step_overlap,
-            "step_profile": step_profile}
+            "step_profile": step_profile, "step_schedules": step_schedules,
+            "step_tricks": step_tricks, "rotate_forms": rotate_forms,
+            "inverse_probe": inverse_probe}
 
 
 def reset_counts():
@@ -1789,6 +1814,213 @@ def step_experiments(dev, results, microbench, smi):
     print("step_experiments phase: %.1f s" % (time.time() - t0))
 
 
+def check_step_variants(nft, dev, rng, results):
+    """K10-K13 against their plain versions, bit for bit, at batch 101 (a
+    partial sample group) and 256: K10 every schedule in both key forms
+    (also against K1), K11 every variant and K12 every form in both forms,
+    3 steps from step 1 of a 4-step key (also against K3 on the same steps,
+    t8 and t8+t9 on the evened powers), K13 every probe.  These launches
+    are comparisons: the counts are set to 0 afterwards."""
+    from nufhe_tpu_torch.ops import (blind_rotate as brc, cmux,
+                                     inverse_probe as ip, rotate_forms as rf,
+                                     step_schedules as ss, step_tricks as st)
+    t0 = time.time()
+    tp = nft.NuFHEParameters().tgsw_params
+    kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
+    for mode in ("NTT", "FFT"):
+        key = random_key(rng, 4, tp, dev, mode)
+        key_row = key[0].contiguous()
+        for batch in (101, 256):
+            acc = random_acc(rng, batch, dev)
+            bara_t = random_powers(rng, (4, batch), dev)
+            p = bara_t[0].contiguous()
+            k1 = cmux.cmux_step(acc, p, key_row, **kw)
+            for name in ss.SCHEDULES:
+                got = ss.step_schedule(name, acc, p, key_row, **kw)
+                record_err(results, "step_schedules", "K10 %r %s vs plain, "
+                           "batch %d" % (name, mode, batch), max_abs_err(
+                               got, ss.step_schedule_plain(name, acc, p,
+                                                           key_row, **kw)))
+                record_err(results, "step_schedules", "K10 %r %s vs K1, "
+                           "batch %d" % (name, mode, batch),
+                           max_abs_err(got, k1))
+            k3 = {even: brc.blind_rotate_chunk(
+                acc, st.even_powers(bara_t) if even else bara_t, key, 1, 3,
+                **kw) for even in (False, True)}
+            for name in st.VARIANTS:
+                got = st.step_trick(name, acc, bara_t, key, 1, 3, **kw)
+                record_err(results, "step_tricks", "K11 %r %s vs plain, "
+                           "batch %d" % (name, mode, batch), max_abs_err(
+                               got, st.step_trick_plain(name, acc, bara_t,
+                                                        key, 1, 3, **kw)))
+                record_err(results, "step_tricks", "K11 %r %s vs K3, batch "
+                           "%d" % (name, mode, batch),
+                           max_abs_err(got, k3[name in st.EVEN]))
+            for form in rf.FORMS:
+                got = rf.rotate_form(form, acc, bara_t, key, 1, 3, **kw)
+                record_err(results, "rotate_forms", "K12 %r %s vs plain, "
+                           "batch %d" % (form, mode, batch), max_abs_err(
+                               got, rf.rotate_form_plain(form, acc, bara_t,
+                                                         key, 1, 3, **kw)))
+                record_err(results, "rotate_forms", "K12 %r %s vs K3, batch "
+                           "%d" % (form, mode, batch),
+                           max_abs_err(got, k3[False]))
+    for batch in (101, 256):
+        a = torch.from_numpy(rng.randint(-2**31, 2**31, (batch, ip.ROWS))
+                             .astype(np.int32)).to(dev)
+        for name in ip.PROBES:
+            record_err(results, "inverse_probe", "K13 %r vs plain, batch %d"
+                       % (name, batch), max_abs_err(
+                           ip.inverse_probe(name, a),
+                           ip.inverse_probe_plain(name, a)))
+    reset_counts()
+    print("check_step_variants: %.1f s" % (time.time() - t0))
+
+
+def schedules_phase(dev, results, microbench, e3, smi):
+    """T5 on K10 at 2^14, both engines: every schedule bit-equal to K1 and
+    the default one ("v3") to its plain version (timed), then
+    ``tools/exp_round3_torch.py`` (ms a launch and ms/bit)."""
+    from nufhe_tpu_torch.ops import cmux, step_schedules as ss
+    b = TIMING_BATCH
+    line = {}
+    for mode in ("NTT", "FFT"):
+        acc, p, row, kw = microbench._setup(b, dev, exact=mode == "NTT")
+        k1 = cmux.cmux_step(acc, p, row, **kw)
+        for name in ss.SCHEDULES:
+            record_err(results, "step_schedules", "K10 %r %s vs K1, batch %d"
+                       % (name, mode, b), max_abs_err(
+                           ss.step_schedule(name, acc, p, row, **kw), k1))
+        want, plain = timed_plain(lambda: ss.step_schedule_plain(
+            "v3", acc, p, row, **kw))
+        record_err(results, "step_schedules", "K10 'v3' %s vs plain, batch "
+                   "%d" % (mode, b), max_abs_err(k1, want))
+        del k1, want
+        res, counts = tool_counts(
+            "exp_round3_torch %s, batch %d" % (mode, b), "step_schedules",
+            lambda: e3.run(b, dev, exact=mode == "NTT"))
+        bound, by = part_bound("FULL step", b, mode)
+        line[mode] = {"schedules": res, "plain_ms_v3": plain,
+                      "bound_ms": bound, "bound_by": by}
+        if mode == "NTT":
+            results["step_schedules"].update(
+                launches=counts["step_schedules"], ms=res["v3"]["ms"],
+                plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
+    print(json.dumps({"step_schedules": line, "batch": b, "card": smi}))
+
+
+def chunk_variants_phase(dev, results, e4, kernel, label, variants, even,
+                         run_one, run_plain, run_tool, smi):
+    """T4 on K11 or T6 on K12 at 2^14, both engines: every variant at 100
+    steps in one launch bit-equal to one K3 launch of 100 steps (those in
+    ``even`` on the evened powers), the first at CHECK_STEPS steps against
+    its plain version (timed, for the ``kernels`` line), then the tool."""
+    from nufhe_tpu_torch.ops import blind_rotate as brc, step_tricks as st
+    b = TIMING_BATCH
+    line = {}
+    for mode in ("NTT", "FFT"):
+        acc, bara_t, key, kw = e4.context_inputs(b, dev, CONTEXT_STEPS,
+                                                 mode == "NTT")
+        k3 = {}
+        for v in variants:
+            if (v in even) not in k3:
+                k3[v in even] = brc.blind_rotate_chunk(
+                    acc, st.even_powers(bara_t) if v in even else bara_t,
+                    key, 0, CONTEXT_STEPS, **kw)
+            record_err(results, kernel, "%s %r %s, %d steps in one launch, "
+                       "vs one K3 launch, batch %d" % (label, v, mode,
+                                                      CONTEXT_STEPS, b),
+                       max_abs_err(run_one(v, acc, bara_t, key, 0,
+                                           CONTEXT_STEPS, **kw),
+                                   k3[v in even]))
+        del k3
+        first = variants[0]
+        got = run_one(first, acc, bara_t, key, 0, CHECK_STEPS, **kw)
+        want, plain = timed_plain(lambda: run_plain(
+            first, acc, bara_t, key, 0, CHECK_STEPS, **kw))
+        record_err(results, kernel, "%s %r %s vs plain, %d steps, batch %d"
+                   % (label, first, mode, CHECK_STEPS, b),
+                   max_abs_err(got, want))
+        del got, want
+        ms_check = cuda_ms(lambda: run_one(first, acc, bara_t, key, 0,
+                                           CHECK_STEPS, **kw), 5)
+        res, counts = tool_counts("%s %s, batch %d" % (label, mode, b),
+                                  kernel, lambda: run_tool(mode))
+        bound, by = context_bound(b, mode, CHECK_STEPS)
+        line[mode] = {"ms_per_step": {k: r["ms_per_step"]
+                                      for k, r in res.items()},
+                      "bound_ms_per_step": context_bound(b, mode, 1)[0],
+                      "check_variant": first, "check_steps": CHECK_STEPS,
+                      "check_ms": ms_check, "check_plain_ms": plain,
+                      "check_bound_ms": bound}
+        if mode == "NTT":
+            results[kernel].update(launches=counts[kernel], ms=ms_check,
+                                   plain_ms=plain, bound_ms=bound,
+                                   bound_by=by, library_ms=None)
+    print(json.dumps({kernel: line, "batch": b, "steps": CONTEXT_STEPS,
+                      "card": smi}))
+
+
+def probe_phase(dev, results, ei, smi):
+    """T8 on K13 at 2^14: every probe against its plain version on the
+    tool's input (the plain "sliced" timed), then
+    ``tools/exp_inverse_torch.py``."""
+    from nufhe_tpu_torch.ops import inverse_probe as ip
+    b = TIMING_BATCH
+    a = ei.inputs(b, dev)
+    plain = {}
+    for name in ip.PROBES:
+        got = ip.inverse_probe(name, a)
+        want, plain[name] = timed_plain(lambda: ip.inverse_probe_plain(name,
+                                                                       a))
+        record_err(results, "inverse_probe", "K13 %r vs plain, batch %d"
+                   % (name, b), max_abs_err(got, want))
+        del got, want
+    res, counts = tool_counts("exp_inverse_torch, batch %d" % b,
+                              "inverse_probe", lambda: ei.run(b, dev))
+    if not res["sliced_exact"]:
+        raise AssertionError("exp_inverse_torch: sliced is not base")
+    bound, by = bound_ms(2 * a.numel() * 4, 0)
+    results["inverse_probe"].update(launches=counts["inverse_probe"],
+                                    ms=res["ms"]["sliced"],
+                                    plain_ms=plain["sliced"], bound_ms=bound,
+                                    bound_by=by, library_ms=None)
+    print(json.dumps({"inverse_probe": {
+        name: {"ms": res["ms"][name], "plain_ms": plain[name]}
+        for name in ip.PROBES}, "bound_ms": bound, "bound_by": by,
+        "batch": b, "card": smi}))
+
+
+def step_variants(dev, results, microbench, smi):
+    """Phase ``step_variants``: T5, T4, T6 and T8 (K10-K13) at 2^14."""
+    import exp_inverse_torch as ei
+    import exp_round3_torch as e3
+    import exp_round4_torch as e4
+    import exp_round5_torch as e5
+    from nufhe_tpu_torch.ops import rotate_forms as rf, step_tricks as st
+    t0 = time.time()
+    schedules_phase(dev, results, microbench, e3, smi)
+    print("step_variants: T5 %.1f s" % (time.time() - t0))
+    t1 = time.time()
+    chunk_variants_phase(
+        dev, results, e4, "step_tricks", "K11", st.VARIANTS, st.EVEN,
+        st.step_trick, st.step_trick_plain,
+        lambda mode: e4.tricks(TIMING_BATCH, dev, n_steps=CONTEXT_STEPS,
+                               exact=mode == "NTT"), smi)
+    print("step_variants: T4 %.1f s" % (time.time() - t1))
+    t1 = time.time()
+    chunk_variants_phase(
+        dev, results, e4, "rotate_forms", "K12", rf.FORMS, (),
+        rf.rotate_form, rf.rotate_form_plain,
+        lambda mode: e5.main(TIMING_BATCH, dev, n_steps=CONTEXT_STEPS,
+                             exact=mode == "NTT"), smi)
+    print("step_variants: T6 %.1f s" % (time.time() - t1))
+    t1 = time.time()
+    probe_phase(dev, results, ei, smi)
+    print("step_variants: T8 %.1f s" % (time.time() - t1))
+    print("step_variants phase: %.1f s" % (time.time() - t0))
+
+
 def microbench_phase(dev, microbench, smi):
     """Phase ``microbench``: ``rotation`` at 2^14 in both engines (100 K1
     launches against K3 at chunks 10, 25 and 50, each chunked rotation
@@ -1835,15 +2067,15 @@ def oracle_worker(seed):
     out = dict(bits=bits, secret=secret.dumps(),
                cx=[t.numpy() for t in (cx.a, cx.b, cx.current_variances)],
                cy=[t.numpy() for t in (cy.a, cy.b, cy.current_variances)])
-    for mode in ("NTT", "FFT"):
+    for mode, coarse in (("NTT", 0), ("FFT", 0), ("NTT", COARSE_BITS)):
         params = nft.NuFHEParameters(lwe_size=N_LWE, transform_type=mode)
         t0 = time.time()
         res = bootstrap_ref.bootstrap(
             lin_a, lin_b, bk.bk_coeff, (ks.ks_a, ks.ks_b, ks.ks_cv),
             phase_to_t32(1, 8), params.tgsw_params,
             (params.ks_decomp_length, params.ks_log2_base),
-            exact=mode == "NTT")
-        out[mode] = (res, time.time() - t0)
+            exact=mode == "NTT", coarse_phase_bits=coarse)
+        out["coarse" if coarse else mode] = (res, time.time() - t0)
     return out
 
 
@@ -1852,7 +2084,9 @@ def oracle_phase(nft, dev, secret, cloud, cloud_fft, oracle_job):
     the default path (K3 + K2), the per-step path (K1 + K2) and the lanes
     path (K4 + K2), both modes, each with its launch counts; a and b equal
     the numpy oracle's bit for bit and cv agrees within
-    ``utils.errors_allclose``."""
+    ``utils.errors_allclose``; then the default NAND with
+    ``coarse_phase_bits=1`` against ``bootstrap_ref.bootstrap(...,
+    coarse_phase_bits=1)`` the same way."""
     from nufhe_tpu_torch.utils import errors_allclose
     t0 = time.time()
     host = oracle_job.get()
@@ -1890,6 +2124,25 @@ def oracle_phase(nft, dev, secret, cloud, cloud_fft, oracle_job):
                                        "allclose" if close else "DIFFERENT"))
             if not (same and close):
                 raise AssertionError("%s differs from the oracle" % label)
+    # the default NAND with the coarse modulus switch (even rotation
+    # amounts, the ones K11's t8 prices) against the oracle's
+    t0 = time.time()
+    want_a, want_b, want_cv = host["coarse"][0]
+    label = "oracle NTT default path, coarse_phase_bits=%d" % COARSE_BITS
+    out, _ = run_gate(nft, label, secret, nft.VirtualMachine(
+        cloud, nft.PerformanceParameters(coarse_phase_bits=COARSE_BITS),
+        device=dev), "gate_nand", (cx, cy), want_bits, paths[0][2])
+    same = (np.array_equal(out.a.cpu().numpy(), want_a)
+            and np.array_equal(out.b.cpu().numpy(), want_b))
+    close = errors_allclose(out.current_variances, want_cv)
+    print("%s: a, b vs ref/bootstrap_ref.bootstrap(coarse_phase_bits=%d) on "
+          "%d inputs at n=%d: %s; cv %s (its oracle %.1f s, the check %.1f s)"
+          % (label, COARSE_BITS, ORACLE_INPUTS, N_LWE,
+             "bit-equal" if same else "DIFFERENT",
+             "allclose" if close else "DIFFERENT", host["coarse"][1],
+             time.time() - t0))
+    if not (same and close):
+        raise AssertionError("%s differs from the oracle" % label)
 
 
 def native_keygen(nft, dev, cloud):
@@ -2029,10 +2282,27 @@ def smoke(nft, smi, dev, rng, oracle_job):
             name="step_profile", route="cuda",
             source="nufhe_tpu_torch/kernels/csrc/step_profile.cu",
             replaces="tools/exp_round4.py:70"),
+        "step_schedules": dict(
+            name="step_schedules", route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/step_schedules.cu",
+            replaces="tools/exp_round3.py:48"),
+        "step_tricks": dict(
+            name="step_tricks", route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/step_tricks.cu",
+            replaces="tools/exp_round4.py:604"),
+        "rotate_forms": dict(
+            name="rotate_forms", route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/rotate_forms.cu",
+            replaces="tools/exp_round5.py:152"),
+        "inverse_probe": dict(
+            name="inverse_probe", route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/inverse_probe.cu",
+            replaces="tools/exp_inverse.py:89"),
     }
     check_kernels(nft, dev, rng, results)
     check_step_parts(nft, dev, rng, results)
     check_step_experiments(nft, dev, rng, results)
+    check_step_variants(nft, dev, rng, results)
 
     t0 = time.time()
     secret, cloud, cloud_fft, host_prepared = keygen_on_card(nft, dev)
@@ -2061,6 +2331,7 @@ def smoke(nft, smi, dev, rng, oracle_job):
     step_parts_timing(dev, results, microbench, smi)
     microbench_phase(dev, microbench, smi)
     step_experiments(dev, results, microbench, smi)
+    step_variants(dev, results, microbench, smi)
     run_examples()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

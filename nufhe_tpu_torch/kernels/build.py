@@ -47,6 +47,17 @@ KERNELS = {
                      [_P, _P, _P, _P, _I, ctypes.c_uint, _I, _I, _P]),
     "step_profile": ("step_profile.cu", "step_profile_launch",
                      [_P, _P, _P, _P, _I, _I, ctypes.c_uint, _I, _I, _I, _P]),
+    "step_schedules": ("step_schedules.cu", "step_schedules_launch",
+                       [_P, _P, _P, _P, _I, _I, ctypes.c_uint, _I, _I, _I,
+                        _P]),
+    "step_tricks": ("step_tricks.cu", "step_tricks_launch",
+                    [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint, _I, _I,
+                     _I, _P]),
+    "rotate_forms": ("rotate_forms.cu", "rotate_forms_launch",
+                     [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint, _I, _I,
+                      _I, _P]),
+    "inverse_probe": ("inverse_probe.cu", "inverse_probe_launch",
+                      [_P, _P, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -7,8 +7,12 @@
 // profile K9, step_profile.cu: K1 cut after a stage, the Part argument),
 // the in-loop stage stand-ins (K6, step_context.cu: K3 with one stage
 // swapped, the Variant argument) and the split-halves step (K8,
-// step_overlap.cu: K1 in another schedule, also the Variant argument).
-// Both arguments' defaults are K1 and K3.
+// step_overlap.cu: K1 in another schedule, also the Variant argument); so
+// are the step schedules (K10, step_schedules.cu: K1 in seven schedules),
+// the step tricks (K11, step_tricks.cu) and the rotation forms (K12,
+// rotate_forms.cu: K3 with another form of a stage) and the inverse
+// probes (K13, inverse_probe.cu: the kInvProbe part).  Both arguments'
+// defaults are K1 and K3.
 //
 //   acc' = acc + sum_{g=(o_in,d)} decomp_d((X^p - 1) * acc[o_in]) (*) BK[g, o_out]
 //
@@ -98,6 +102,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "rotate_common.cuh"
 
 namespace {
@@ -164,12 +170,19 @@ __device__ __forceinline__ void key_rows(int p,
 // limbs, the other pairs to hi_x (the second half of the slot's limbs is
 // still being written); half 1 adds into both and leaves the hi channel
 // where K1 leaves it.  build_rows false: the warp's key rows are already
-// in arow (K6's key-split stand-in).
-template <int M, int D, bool kRounded, int kHalf = -1>
+// in arow (K6's key-split stand-in).  kQ > 1 (K10's pipelines): the limbs
+// lie sample-major ([sample][g][limb][32 bytes], so that a sample's hi
+// channel lies over its own limbs) and the MAC is that of sub-batch q, the
+// samples [q*kS/kQ, (q+1)*kS/kQ), the other columns zero and not stored.
+// kPartial (K10's v2): the groups are left partly combined, A0 + A1<<8 +
+// A2<<16 in the lo channel and A3<<24 + B (exact; A3 rounded) in the hi
+// channel's place, for combine_pass.
+template <int M, int D, bool kRounded, int kHalf = -1, int kQ = 1,
+          bool kPartial = false>
 __device__ __forceinline__ void mac_slot(
     int p, const long long* __restrict__ key_row, uint32_t* arow,
     uint32_t* work, uint32_t* limbs, bool build_rows = true,
-    uint32_t* hi_x = nullptr) {
+    uint32_t* hi_x = nullptr, int q = 0) {
   using S = Shape<M, D>;
   constexpr int kGn = kHalf < 0 ? S::kG : S::kG / 2;
   constexpr int kG0 = kHalf < 0 ? 0 : kHalf * kGn;
@@ -185,14 +198,23 @@ __device__ __forceinline__ void mac_slot(
   // B fragments: sample gid's limbs i of digit polynomial g, bytes
   // 4tig..4tig+3 and 16+4tig..+3 (samples past kS are zero columns)
   const uint32_t* reg = limbs + p * S::kRegionWords;
+  constexpr int kSub = kS / kQ;
+  const int n0 = q * kSub;
   uint32_t bf[kGn][2][2];
 #pragma unroll
   for (int g = 0; g < kGn; ++g)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const uint32_t* w = reg + (((kG0 + g) * 2 + i) * kS + gid) * 8;
-      bf[g][i][0] = gid < kS ? w[tig] : 0u;
-      bf[g][i][1] = gid < kS ? w[tig + 4] : 0u;
+      if constexpr (kQ == 1) {
+        const uint32_t* w = reg + (((kG0 + g) * 2 + i) * kS + gid) * 8;
+        bf[g][i][0] = gid < kS ? w[tig] : 0u;
+        bf[g][i][1] = gid < kS ? w[tig + 4] : 0u;
+      } else {
+        const uint32_t* w = reg + ((gid * S::kG + kG0 + g) * 2 + i) * 8;
+        const bool mine = gid >= n0 && gid < n0 + kSub;
+        bf[g][i][0] = mine ? w[tig] : 0u;
+        bf[g][i][1] = mine ? w[tig + 4] : 0u;
+      }
     }
   __syncwarp();   // the rows are written; the limbs are read (hi goes there)
 
@@ -252,6 +274,9 @@ __device__ __forceinline__ void mac_slot(
         const int k = 4 * gid + (e < 2 ? 3 : 1) - tile;
         const int n = 2 * tig + (e & 1);
         if (n >= kS) continue;
+        if constexpr (kQ > 1) {
+          if (n < n0 || n >= n0 + kSub) continue;
+        }
         const int a = kRounded ? 0 : 1;
         const uint32_t lo = (uint32_t)d[tile][a][e] +
                             ((uint32_t)d[tile][a + 1][e] << 8) +
@@ -260,7 +285,12 @@ __device__ __forceinline__ void mac_slot(
         uint32_t* wl = work + n * S::kWorkWords + (o * kL + p) * kR + k;
         uint32_t* hl = limbs + p * S::kRegionWords + (n * M + o) * kR + k;
         const uint32_t hi = (uint32_t)d[tile][0][e];
-        if constexpr (kHalf < 0) {
+        if constexpr (kHalf < 0 && kPartial) {
+          const uint32_t a3 = (uint32_t)d[tile][a + 3][e];
+          *wl = (uint32_t)d[tile][a][e] + ((uint32_t)d[tile][a + 1][e] << 8) +
+                ((uint32_t)d[tile][a + 2][e] << 16);
+          *hl = kRounded ? a3 : (a3 << 24) + hi;
+        } else if constexpr (kHalf < 0) {
           *wl = lo;
           if (!kRounded) *hl = hi;
         } else {
@@ -302,6 +332,9 @@ enum Part : int {
   kRotDecFwd = 12,     // 2 on the rotation's digits
   kRotDecFwdKey = 13,  // 3 on the rotation's digits
   kRotDecFwdMac = 14,  // 4 on the rotation's digits
+  kInvProbe = 15,      // K13: the exact inverse, fold and normalisation
+                       // alone, on tools/exp_inverse.py's stacked input
+                       // (inverse_probe.cu), the twiddle form by Variant
 };
 
 // The stage a part stops after (its rotating forms are K5's parts)
@@ -321,8 +354,8 @@ struct PartOut {
                                    P == kFull || P == kRotDecFwd ||
                                    P == kRotDecFwdKey || P == kRotDecFwdMac;
   // the accumulator is the output (else a folded buffer in `work`)
-  static constexpr bool kFromAcc =
-      P == kInvOnly || P == kDecFwdMacInv || P == kFull || P == kNoop;
+  static constexpr bool kFromAcc = P == kInvOnly || P == kDecFwdMacInv ||
+                                   P == kFull || P == kNoop || P == kInvProbe;
   // output polynomials a sample, and the work polynomials summed into one
   static constexpr int kPolys = P == kRotDecomp ? M * D : M;
   static constexpr int kSum =
@@ -352,7 +385,85 @@ enum Variant : int {
                        // rows of slot p % warps
   kSplitHalves = 9,    // K8: forward g < G/2; its MAC beside the forward of
                        // g >= G/2; their MAC; the inverse
+  // K10 (step_schedules.cu, K1 at (2, 2)), each bit-equal to K1:
+  kDigitsStaged = 10,  // v0: the digits stored as int32 (in the limbs'
+                       // place), a pass into the padded rows, the forward
+                       // as staged passes (staged_forward)
+  kStagedForward = 11, // v1 (and K11's t6): the fused digits stored as
+                       // padded int16 rows, the forward as one pass a
+                       // stage over every polynomial of the block, a limb
+                       // split pass
+  kUnfusedCombine = 12,  // v2: the MAC's groups partly combined, a combine
+                       // pass before the inverse, the channels' sum and
+                       // the accumulator add a pass after it
+  kPipe2 = 13,         // p2: a software pipeline over two sub-batches of
+                       // the block's samples (sample_pipeline)
+  kPipe2Dots = 14,     // p2b: the same with both MACs before either back
+  kPipe4 = 15,         // p4: over four sub-batches
+  // K11 (step_tricks.cu, K3 at (2, 2)), each bit-equal to K3 (t8: on even
+  // rotation amounts):
+  kTwoRollTwiddle = 16,  // t10: the twiddles' roll-roll-select form
+  kSeparateAdd = 17,   // t9: the inverse's output through shared memory, the
+                       // accumulator add a pass of its own (add_pass)
+  kEvenBarrelSepAdd = 18,  // t8+t9: kEvenBarrel and kSeparateAdd
+  kEvenBarrel = 19,    // t8: t14's barrel without round 0 (p even)
+  kStagedInverse = 20, // t7: the inverse as one pass a stage over every
+                       // channel polynomial (staged_inverse)
+  kDeferredCarry = 21, // t5: the deferred-carry barrel (kRotDeferred)
+  // K12 (rotate_forms.cu, K3 at (2, 2)): the barrel's forms, bit-equal to K3
+  kBarrelWhole = 22,   // t11
+  kBarrelSliced = 23,  // t12
+  kBarrelFusedI = 24,  // t13
+  kBarrelBoth = 25,    // t14
+  // K13 (inverse_probe.cu, part kInvProbe): the twiddle forms (kAsIs:
+  // "sliced", K3's)
+  kProbeBase = 26,     // kTwPerBit
+  kProbeNotw = 27,     // kTwNone
+  kProbeAlign = 28,    // kTwAligned
+  kProbeNoroll = 29,   // kTwSignOnly
 };
+
+// What a variant changes (each default is K1/K3's)
+__host__ __device__ constexpr int rot_form(int v) {
+  return v == kBarrelWhole ? kRotWhole
+         : v == kBarrelSliced ? kRotSliced
+         : v == kBarrelFusedI ? kRotFusedI
+         : (v == kBarrelBoth || v == kEvenBarrel || v == kEvenBarrelSepAdd)
+             ? kRotBoth
+         : v == kDeferredCarry ? kRotDeferred : kRotGather;
+}
+
+__host__ __device__ constexpr int rot_skip(int v) {
+  return v == kEvenBarrel || v == kEvenBarrelSepAdd ? 1 : 0;
+}
+
+__host__ __device__ constexpr int twiddle_of(int v) {
+  return v == kTwoRollTwiddle ? kTwTwoRoll
+         : v == kProbeBase ? kTwPerBit
+         : v == kProbeNotw ? kTwNone
+         : v == kProbeAlign ? kTwAligned
+         : v == kProbeNoroll ? kTwSignOnly : kTwSliced;
+}
+
+__host__ __device__ constexpr bool staged_fwd(int v) {
+  return v == kDigitsStaged || v == kStagedForward;
+}
+
+__host__ __device__ constexpr bool separate_add(int v) {
+  return v == kUnfusedCombine || v == kSeparateAdd || v == kEvenBarrelSepAdd;
+}
+
+// sub-batches of K10's pipelines (1: none)
+__host__ __device__ constexpr int pipe_parts(int v) {
+  return v == kPipe4 ? 4 : (v == kPipe2 || v == kPipe2Dots) ? 2 : 1;
+}
+
+// variants whose digits and forward are K3's own (forward_digits)
+__host__ __device__ constexpr bool plain_forward(int v) {
+  return v == kAsIs || v == kNoLimbSplit || v == kNoInverse ||
+         v == kNoKeySplit || v == kUnfusedCombine || v == kTwoRollTwiddle ||
+         v == kSeparateAdd || v == kStagedInverse;
+}
 
 // kDecFwdKey's stand-in for the MAC of slot p: the slot's key rows
 // (key_rows), then one read of each row word and of the slot's digit
@@ -492,6 +603,311 @@ __device__ __forceinline__ void split_halves(
   __syncthreads();
 }
 
+// Rows of a set of polynomials in shared memory: polynomial i < n0 at
+// a + i*ps_a, row r at + r*rs_a; the others at b + (i - n0)*ps_b, row r at
+// + r*rs_b (the lo channels and the hi channels of the inverse)
+template <typename T>
+struct PolyRows {
+  T* a;
+  int ps_a, rs_a, n0;
+  T* b;
+  int ps_b, rs_b;
+  __device__ __forceinline__ T* operator()(int poly, int r) const {
+    return poly < n0 ? a + poly * ps_a + r * rs_a
+                     : b + (poly - n0) * ps_b + r * rs_b;
+  }
+};
+
+// dft_regs's transform as one pass a stage over every polynomial of the
+// block in shared memory (K10's v0/v1, K11's t6 and t7): a warp takes a
+// butterfly pair (i, j) of a polynomial at a time, its 32 lanes the
+// coefficients, and reads x_j at the twiddle's rotated lane; a block
+// barrier ends each stage.  Input in bit-reversed row order, output
+// natural; int16 rows hold the forward's values (|x| <= 2^14) as int.
+template <bool kInverse, typename T, typename Rows>
+__device__ __forceinline__ void staged_dft(const Rows& rows, int n_polys) {
+  using W = typename std::conditional<kInverse, uint32_t, int>::type;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+#pragma unroll 1
+  for (int stage = 0; stage < 6; ++stage) {
+    const int mmax = 1 << stage;
+#pragma unroll 1
+    for (int u = warp; u < n_polys * 32; u += n_warps) {
+      const int poly = u >> 5;
+      const int pair = u & 31;
+      const int m = pair & (mmax - 1);
+      const int i = ((pair >> stage) << (stage + 1)) + m;
+      int tw = m << (5 - stage);
+      if (kInverse) tw = -tw;
+      tw &= 63;
+      const int sh = tw & 31;
+      T* ri = rows(poly, i);
+      T* rj = rows(poly, i + mmax);
+      const W xi = (W)ri[lane];
+      W xj = (W)rj[(lane - sh) & 31];
+      if ((lane < sh) != (tw >= 32)) xj = (W)0 - xj;
+      __syncwarp();
+      ri[lane] = (T)(xi + xj);
+      rj[lane] = (T)(xi - xj);
+    }
+    __syncthreads();
+  }
+}
+
+// K10's v0 and v1 and K11's t6, phases 1-3 after the digit warps: v0's pass
+// from the int32 digits (in the limbs' place, polynomial pi = s*G + g,
+// block j lane i at pi*1024 + j*32 + i) into the padded int16 rows (in the
+// lo channel's place, pi*2048 + row*32 + lane; v1 and t6's warps store
+// those rows themselves), the forward's staged passes, and the limb split
+// into K3's slot layout.
+template <int M, int D, int V>
+__device__ __forceinline__ void staged_forward(uint32_t* work,
+                                               uint32_t* limbs) {
+  using S = Shape<M, D>;
+  constexpr int kPolys = S::kS * S::kG;
+  static_assert(kPolys * kL * kR * 2 <= S::kS * S::kWorkWords * 4,
+                "the int16 rows fit the lo channel's place");
+  static_assert(kPolys * kN <= kL * S::kRegionWords,
+                "the int32 digits fit the limbs' place");
+  int16_t* rows = reinterpret_cast<int16_t*>(work);
+  if constexpr (V == kDigitsStaged) {
+    for (int e = threadIdx.x; e < kPolys * kN; e += S::kThreads) {
+      int16_t* r = rows + (e >> 10) * kL * kR + rev6((e >> 5) & 31) * kR +
+                   (e & 31);
+      r[0] = (int16_t)limbs[e];
+      r[kR] = 0;
+    }
+    __syncthreads();
+  }
+  staged_dft<false, int16_t>(
+      PolyRows<int16_t>{rows, kL * kR, kR, kPolys, rows, 0, 0}, kPolys);
+  uint8_t* lb = reinterpret_cast<uint8_t*>(limbs);
+  for (int e = threadIdx.x; e < kPolys * kL * kR; e += S::kThreads) {
+    const int pi = e >> 11;
+    const int x = rows[e];
+    uint8_t* reg = lb + rev6((e >> 5) & 63) * S::kRegionWords * 4 +
+                   ((pi % S::kG) * 2 * S::kS + pi / S::kG) * 32 + (e & 31);
+    reg[0] = (uint8_t)limb0(x);
+    reg[S::kS * 32] = (uint8_t)limb1(x);
+  }
+}
+
+// v0 and v1/t6's digit warp (sample s, digit polynomial g; pi = s*G + g):
+// the rotation and the digits, stored for staged_forward
+template <int V>
+__device__ __forceinline__ void stage_digits(const uint32_t* a, int p,
+                                             int shift, uint32_t offset,
+                                             int base_mask, int half,
+                                             int lane, int pi,
+                                             uint32_t* work,
+                                             uint32_t* limbs) {
+  int16_t* rows = reinterpret_cast<int16_t*>(work) + pi * kL * kR;
+#pragma unroll
+  for (int j = 0; j < kL / 2; ++j) {
+    const int d = gadget_digit(rotated_coeff(a, p, j, lane), shift, offset,
+                               base_mask, half);
+    if constexpr (V == kDigitsStaged) {
+      limbs[pi * kN + j * 32 + lane] = (uint32_t)d;
+    } else {
+      rows[rev6c(j) * kR + lane] = (int16_t)d;
+      rows[(rev6c(j) + 1) * kR + lane] = 0;
+    }
+  }
+}
+
+// The barrel's rotation (rot_form), the digits and the forward transform
+// of one digit warp, into its registers as forward_digits leaves them
+template <int kForm, int kSkip>
+__device__ __forceinline__ void forward_barrel(const uint32_t* a, int p,
+                                               int shift, uint32_t offset,
+                                               int base_mask, int half,
+                                               int lane, uint32_t* scratch,
+                                               int (&x)[kL]) {
+  uint32_t r[kL / 2];
+  barrel_rotate<kForm, kSkip>(a, p, lane, scratch, r);
+#pragma unroll
+  for (int j = 0; j < kL / 2; ++j) {
+    x[rev6c(j)] = gadget_digit(r[j], shift, offset, base_mask, half);
+    x[rev6c(j) + 1] = 0;
+  }
+  dft_regs<int, false>(x, lane);
+}
+
+// The accumulator add as a pass of its own (t9, t8+t9, v2 and t7): the
+// folded lo channel of (s, o) in its rows 0..31, hi >> 6 where K3 leaves
+// it (exact form), both added into the accumulator
+template <int M, int D, bool kRounded>
+__device__ __forceinline__ void add_pass(uint32_t* acc_s, const uint32_t* work,
+                                         const uint32_t* limbs) {
+  using S = Shape<M, D>;
+  for (int e = threadIdx.x; e < S::kS * S::kAccWords; e += S::kThreads) {
+    const int so = e >> 10;
+    const int q = e & (kN - 1);
+    uint32_t d = work[so * kL * kR + q];
+    if constexpr (!kRounded)
+      d += limbs[so * kR + (q >> 5) * S::kRegionWords + (q & 31)];
+    acc_s[e] += d;
+  }
+}
+
+// v2's combine pass after the MAC (mac_slot kPartial): lo += A3<<24 and,
+// exact, hi = B (the low 24 bits of A3<<24 + B, sign-extended: |B| <=
+// G*2^17)
+template <int M, int D, bool kRounded>
+__device__ __forceinline__ void combine_pass(uint32_t* work, uint32_t* limbs) {
+  using S = Shape<M, D>;
+  for (int e = threadIdx.x; e < S::kS * S::kWorkWords; e += S::kThreads) {
+    const int n = e / S::kWorkWords;
+    const int o = (e % S::kWorkWords) / (kL * kR);
+    const int p = (e / kR) % kL;
+    uint32_t* hl = limbs + p * S::kRegionWords + (n * M + o) * kR + (e & 31);
+    const uint32_t w2 = *hl;
+    if constexpr (kRounded) {
+      work[e] += w2 << 24;
+    } else {
+      const uint32_t b = (uint32_t)((int32_t)(w2 << 8) >> 8);
+      work[e] += w2 - b;
+      *hl = b;
+    }
+  }
+}
+
+// t7: the inverse of every channel polynomial (lo of (s, o) in the lo
+// channel, hi over the slots' limbs) by staged_dft, the fold (hi >> 6) a
+// pass, and add_pass
+template <int M, int D, bool kRounded>
+__device__ __forceinline__ void staged_inverse(uint32_t* acc_s,
+                                               uint32_t* work,
+                                               uint32_t* limbs) {
+  using S = Shape<M, D>;
+  constexpr int kPairs = S::kS * M;
+  constexpr int kPolys = (kRounded ? 1 : 2) * kPairs;
+  const PolyRows<uint32_t> rows{work, kL * kR, kR, kPairs,
+                                limbs, kR, S::kRegionWords};
+  staged_dft<true, uint32_t>(rows, kPolys);
+  const int lane = threadIdx.x & 31;
+  for (int u = threadIdx.x >> 5; u < kPolys * 32; u += S::kWarps) {
+    const int poly = u >> 5;
+    const int j = u & 31;
+    uint32_t y = rows(poly, j + 32)[(lane + 31) & 31];
+    if (lane == 0) y = 0u - y;
+    uint32_t* rj = rows(poly, j);
+    const uint32_t c = rj[lane] + y;
+    rj[lane] = poly >= kPairs ? (uint32_t)((int32_t)c >> 6) : c;
+  }
+  __syncthreads();
+  add_pass<M, D, kRounded>(acc_s, work, limbs);
+}
+
+// The inverse ("back") of sub-batch q of K10's p2/p4, by the pipeline's
+// first warps: K1's inverse restricted to the pairs (s, o) of samples
+// [q*kSub, (q+1)*kSub); the hi warps reach the lo warps through named
+// barrier `bar` (kWarpsIn warps)
+template <int M, int D, bool kRounded, int kSub, int kWarpsIn>
+__device__ __forceinline__ void back_samples(int q, uint32_t* acc_s,
+                                             uint32_t* work, uint32_t* limbs,
+                                             int bar) {
+  using S = Shape<M, D>;
+  constexpr int kPairs = kSub * M;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool role = warp < (kRounded ? 1 : 2) * kPairs;
+  const bool hi_warp = warp >= kPairs;
+  const int so = q * kPairs + warp % kPairs;
+  uint32_t* src = hi_warp ? limbs + so * kR : work + so * kL * kR;
+  const int stride = hi_warp ? S::kRegionWords : kR;
+  uint32_t x[kL];
+  if (role) {
+#pragma unroll
+    for (int r = 0; r < kL; ++r) x[r] = src[r * stride + lane];
+    inverse_fold(x, lane);
+    if (hi_warp) {
+#pragma unroll
+      for (int j = 0; j < kL / 2; ++j)
+        src[j * stride + lane] = (uint32_t)((int32_t)x[j] >> 6);
+    }
+  }
+  if constexpr (!kRounded) bar_sync(bar, kWarpsIn * 32);
+  if (role && !hi_warp) {
+    uint32_t* acc = acc_s + so * kN + lane;
+#pragma unroll
+    for (int j = 0; j < kL / 2; ++j) {
+      uint32_t delta = x[j];
+      if constexpr (!kRounded) delta += limbs[j * S::kRegionWords + so * kR + lane];
+      acc[j * 32] += delta;
+    }
+  }
+}
+
+// K10's p2, p4 and p2b: a software pipeline over kQ sub-batches of the
+// block's samples.  The first kSub*G warps run the rotation, digits,
+// forward and limb split ("front") of sub-batch q, q = 0, 1, ..., each
+// followed by bar.arrive on barrier 1 + q; the other warps wait there and
+// run sub-batch q's MAC over the 64 slots (mac_slot kQ: the limbs
+// sample-major, each sample's hi channel over its own limbs), so that
+// front(q + 1) overlaps MAC(q).  Without kDotsEarly the first warps then
+// wait on barrier 1 + kQ + q (the MAC warps arrive there) and run the back
+// of sub-batch q, overlapping MAC(q + 1); with it (p2b) every warp runs
+// K1's inverse after both MACs.  Bit-equal to K1: every sample's
+// arithmetic is K1's.
+template <int M, int D, bool kRounded, int kQ, bool kDotsEarly>
+__device__ __forceinline__ void sample_pipeline(
+    uint32_t* acc_s, const int32_t* __restrict__ p_row, int ns,
+    const long long* __restrict__ key_row, uint32_t* arow, uint32_t* work,
+    uint32_t* limbs, uint32_t offset, int log2_base, int base_mask,
+    int half) {
+  using S = Shape<M, D>;
+  constexpr int kSub = S::kS / kQ;
+  constexpr int kFront = kSub * S::kG;
+  constexpr int kMac = S::kWarps - kFront;
+  static_assert(S::kS % kQ == 0 && kMac > 0, "the pipeline's warps");
+  static_assert((kRounded ? 1 : 2) * kSub * M <= kFront, "the back's roles");
+  static_assert(2 * kQ + 1 < 16, "named barriers");
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < kFront) {
+    const int g = warp % S::kG;
+    uint8_t* lb = reinterpret_cast<uint8_t*>(limbs);
+#pragma unroll 1
+    for (int q = 0; q < kQ; ++q) {
+      const int s = q * kSub + warp / S::kG;
+      const int p = s < ns ? (__ldg(p_row + s) & (2 * kN - 1)) : 0;
+      const uint32_t* a = acc_s + s * S::kAccWords + (g / D) * kN;
+      int x[kL];
+      forward_digits<true>(a, p, 32 - (g % D + 1) * log2_base, offset,
+                           base_mask, half, lane, x);
+#pragma unroll
+      for (int f = 0; f < kL; ++f) {
+        uint8_t* reg = lb + rev6c(f) * S::kRegionWords * 4 +
+                       ((s * S::kG + g) * 2) * 32;
+        reg[lane] = (uint8_t)limb0(x[f]);
+        reg[32 + lane] = (uint8_t)limb1(x[f]);
+      }
+      bar_arrive(1 + q, S::kThreads);
+    }
+    if constexpr (!kDotsEarly) {
+#pragma unroll 1
+      for (int q = 0; q < kQ; ++q) {
+        bar_sync(1 + kQ + q, S::kThreads);
+        back_samples<M, D, kRounded, kSub, kFront>(q, acc_s, work, limbs,
+                                                   1 + 2 * kQ);
+      }
+    }
+  } else {
+#pragma unroll 1
+    for (int q = 0; q < kQ; ++q) {
+      bar_sync(1 + q, S::kThreads);
+      for (int p = warp - kFront; p < kL; p += kMac)
+        mac_slot<M, D, kRounded, -1, kQ>(p, key_row, arow, work, limbs, true,
+                                         nullptr, q);
+      if constexpr (!kDotsEarly) bar_arrive(1 + kQ + q, S::kThreads);
+    }
+  }
+  __syncthreads();
+}
+
 template <int M, int D, bool kRounded, int kPart = kFull, int kVariant = kAsIs>
 __global__ void __launch_bounds__(Shape<M, D>::kThreads, 1)
 blind_rotate_kernel(const int32_t* __restrict__ acc_in,
@@ -530,7 +946,10 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
     const int on = e % kAccWords;
     const uint32_t v =
         s < ns ? (uint32_t)acc_in[(size_t)(b0 + s) * kAccWords + on] : 0u;
-    acc_s[s * kAccWords + (on & ~(kN - 1)) + q_of(on & (kN - 1))] = v;
+    if constexpr (kPart == kInvProbe)
+      acc_s[e] = v;   // the probe's rows as they are
+    else
+      acc_s[s * kAccWords + (on & ~(kN - 1)) + q_of(on & (kN - 1))] = v;
   }
   __syncthreads();
 
@@ -550,7 +969,8 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
     // 1-3. a warp a (sample, digit polynomial g = o*D + d): rotation,
     // digit and forward transform in registers, the split into int8 limbs
     // a0, a1 by MAC slot p = rev6(frequency)
-    if constexpr (kPart != kInvOnly && kVariant != kSplitHalves) {
+    if constexpr (kPart != kInvOnly && kPart != kInvProbe &&
+                  kVariant != kSplitHalves && pipe_parts(kVariant) == 1) {
       if (S::kDigitRoles == kWarps || warp < S::kDigitRoles) {
         const int s = warp / kG;
         const int g = warp % kG;
@@ -576,12 +996,21 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
               work[(s * kG + g) * kN + j * 32 + lane] =
                   (uint32_t)gadget_digit(v, shift, offset, base_mask, half);
           }
+        } else if constexpr (staged_fwd(kVariant)) {
+          stage_digits<kVariant>(a, p, shift, offset, base_mask, half, lane,
+                                 warp, work, limbs);
         } else {
           int x[kL];
-          if constexpr (kVariant == kAsIs || kVariant == kNoLimbSplit ||
-                        kVariant == kNoInverse || kVariant == kNoKeySplit)
-            forward_digits<O::kRotates>(a, p, shift, offset, base_mask, half,
-                                        lane, x);
+          if constexpr (rot_form(kVariant) != kRotGather) {
+            static_assert(S::kDigitRoles == kWarps &&
+                          kWarps * kN <= kS * S::kWorkWords,
+                          "a digit warp's barrel scratch in the lo channel");
+            forward_barrel<rot_form(kVariant), rot_skip(kVariant)>(
+                a, p, shift, offset, base_mask, half, lane, work + warp * kN,
+                x);
+          } else if constexpr (plain_forward(kVariant))
+            forward_digits<O::kRotates, twiddle_of(kVariant)>(
+                a, p, shift, offset, base_mask, half, lane, x);
           else
             forward_stand_in<kVariant>(a, p, shift, offset, base_mask, half,
                                        lane, x);
@@ -609,14 +1038,22 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
         }
       }
       __syncthreads();
+      if constexpr (staged_fwd(kVariant)) staged_forward<M, D, kVariant>(
+          work, limbs);
     }
 
     // 4. the MAC, a warp a slot (kDecFwdKey: its stand-in; K8: phases 1-4
-    // in the split schedule)
+    // in the split schedule; K10's pipelines: phases 1-4, and 5-6 but in
+    // p2b)
     if constexpr (kVariant == kSplitHalves) {
       split_halves<M, D>(acc_s, bara_t + step * batch + b0, ns, key_row,
                          arow, work, limbs, hi_x, offset, log2_base,
                          base_mask, half);
+    } else if constexpr (pipe_parts(kVariant) > 1) {
+      sample_pipeline<M, D, kRounded, pipe_parts(kVariant),
+                      kVariant == kPipe2Dots>(
+          acc_s, bara_t + step * batch + b0, ns, key_row, arow, work, limbs,
+          offset, log2_base, base_mask, half);
     } else if constexpr (kStage == kDecFwdKey) {
       for (int p = warp; p < kL; p += kWarps)
         key_slot<M, D, kRounded>(p, key_row, arow, work, limbs);
@@ -624,10 +1061,14 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
     } else if constexpr (kStage == kDecFwdMac || kPart == kDecFwdMacInv ||
                          kPart == kFull) {
       for (int p = warp; p < kL; p += kWarps)
-        mac_slot<M, D, kRounded>(
+        mac_slot<M, D, kRounded, -1, 1, kVariant == kUnfusedCombine>(
             p, key_row, arow, work, limbs,
             kVariant != kNoKeySplit || (st == 0 && p == warp));
       __syncthreads();
+      if constexpr (kVariant == kUnfusedCombine) {
+        combine_pass<M, D, kRounded>(work, limbs);
+        __syncthreads();
+      }
     }
     if constexpr (kStage == kDecFwdMac && !kRounded) {
       // the hi channel (over the slots' limbs) onto the lo channel
@@ -654,7 +1095,10 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
         }
         acc_s[e] += v;
       }
-    } else if constexpr (O::kFromAcc) {
+    } else if constexpr (kVariant == kStagedInverse) {
+      staged_inverse<M, D, kRounded>(acc_s, work, limbs);
+    } else if constexpr (O::kFromAcc && (pipe_parts(kVariant) == 1 ||
+                                         kVariant == kPipe2Dots)) {
       const bool role = kChanRoles == kWarps || warp < kChanRoles;
       const bool hi_warp = warp >= kS * M;
       const int so = warp % (kS * M);            // s * M + o
@@ -662,11 +1106,21 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
       const int stride = hi_warp ? S::kRegionWords : kR;
       uint32_t x[kL];
       if (role) {
+        if constexpr (kPart == kInvProbe) {
+          // K13: channel (hi_warp) of polynomial o of sample s, slot r from
+          // row (r mod 16)*128 + ch*64 + o*32 of the sample's 2048 rows
+          static_assert(M == 2 && !kRounded, "the probe's stacked rows");
+          const uint32_t* in = acc_s + (so / M) * kAccWords +
+                               (hi_warp ? 64 : 0) + (so % M) * 32 + lane;
 #pragma unroll
-        for (int r = 0; r < kL; ++r)
-          x[r] = kPart == kInvOnly ? acc_s[so * kN + (r & 31) * 32 + lane]
-                                   : src[r * stride + lane];
-        inverse_fold(x, lane);
+          for (int r = 0; r < kL; ++r) x[r] = in[(r & 15) * 128];
+        } else {
+#pragma unroll
+          for (int r = 0; r < kL; ++r)
+            x[r] = kPart == kInvOnly ? acc_s[so * kN + (r & 31) * 32 + lane]
+                                     : src[r * stride + lane];
+        }
+        inverse_fold<twiddle_of(kVariant)>(x, lane);
         if (hi_warp) {
 #pragma unroll
           for (int j = 0; j < kL / 2; ++j)
@@ -675,6 +1129,16 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
       }
       if constexpr (!kRounded) __syncthreads();   // every warp is here
       if (role && !hi_warp) {
+        if constexpr (kPart == kInvProbe) {
+          // c = A + (B >> 6) at row j*64 + o*32 of the sample's output
+          uint32_t* out = acc_s + (so / M) * kAccWords + (so % M) * 32 + lane;
+#pragma unroll
+          for (int j = 0; j < kL / 2; ++j)
+            out[j * 64] = x[j] + limbs[j * S::kRegionWords + so * kR + lane];
+        } else if constexpr (separate_add(kVariant)) {
+#pragma unroll
+          for (int j = 0; j < kL / 2; ++j) src[j * kR + lane] = x[j];
+        } else {
         uint32_t* acc = acc_s + so * kN + lane;
 #pragma unroll
         for (int j = 0; j < kL / 2; ++j) {
@@ -686,6 +1150,11 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
           else
             acc[j * 32] += delta;
         }
+        }
+      }
+      if constexpr (separate_add(kVariant)) {
+        __syncthreads();
+        add_pass<M, D, kRounded>(acc_s, work, limbs);
       }
     }
     __syncthreads();
@@ -695,9 +1164,13 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
     for (int e = tid; e < kS * kAccWords; e += kThreads) {
       const int s = e / kAccWords;
       const int on = e % kAccWords;
-      if (s < ns)
-        acc_out[(size_t)(b0 + s) * kAccWords + on] = (int32_t)
-            acc_s[s * kAccWords + (on & ~(kN - 1)) + q_of(on & (kN - 1))];
+      if (s < ns) {
+        if constexpr (kPart == kInvProbe)
+          acc_out[(size_t)(b0 + s) * kAccWords + on] = (int32_t)acc_s[e];
+        else
+          acc_out[(size_t)(b0 + s) * kAccWords + on] = (int32_t)
+              acc_s[s * kAccWords + (on & ~(kN - 1)) + q_of(on & (kN - 1))];
+      }
     }
   } else {
     // a part's work buffer: output polynomial i of sample s is the sum of

@@ -140,6 +140,56 @@ def step_context_plain(variant, acc, bara_t, key, start, chunk, *, offset,
     return fe.n_from_q(acc_q.reshape(bsz, MASK1, N))
 
 
+def check_chunk(name, acc, bara_t, key, start, chunk):
+    """The inputs of a K3-shaped experiment kernel (K6, K11, K12): acc
+    (B, 2, N) int32, bara_t (n, B) int32, an (n,)-row key of l = 2 in
+    either form, steps [start, start + chunk) inside the rotation, one
+    device.  Returns (rounded, start, chunk)."""
+    if cmux.check_acc(acc, name) != MASK1:
+        raise ValueError("%s takes mask1 = %d, got %d"
+                         % (name, MASK1, acc.shape[1]))
+    if bara_t.dtype != torch.int32 or bara_t.dim() != 2 \
+            or bara_t.shape[1] != acc.shape[0]:
+        raise ValueError("bara_t must be int32 (n, B), got %s %s"
+                         % (bara_t.dtype, tuple(bara_t.shape)))
+    n = bara_t.shape[0]
+    rounded = cmux.check_key(key, (n,), name, MASK1)
+    if key.shape[-4] != G:
+        raise ValueError("%s takes l = %d, got a key of G = %d"
+                         % (name, DECOMP, key.shape[-4]))
+    start, chunk = int(start), int(chunk)
+    if chunk < 1 or start < 0 or start + chunk > n:
+        raise ValueError("steps [%d, %d) are not inside the %d-step rotation"
+                         % (start, start + chunk, n))
+    if not (acc.device == bara_t.device == key.device):
+        raise ValueError("acc, bara_t and key must be on one device")
+    return rounded, start, chunk
+
+
+def launch_chunk(name, index, acc, bara_t, key, start, chunk, rounded, *,
+                 offset, log2_base):
+    """Launch kernel ``name`` (a K3-shaped launcher: acc, out, bara_t, key,
+    batch, start, chunk, index, offset, log2_base, rounded, device,
+    stream) on CUDA tensors; returns the output."""
+    if acc.device.type != 'cuda':
+        raise ValueError("%s runs on CUDA or CPU, not %s" % (name, acc.device))
+    if not (acc.is_contiguous() and bara_t.is_contiguous()
+            and key.is_contiguous()):
+        raise ValueError("%s takes contiguous tensors" % name)
+    if not 1 <= log2_base <= 16:
+        raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
+    from ..kernels import build
+    fn = build.entry(name)
+    out = torch.empty_like(acc)
+    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    code = fn(acc.data_ptr(), out.data_ptr(), bara_t.data_ptr(),
+              key.data_ptr(), acc.shape[0], start, chunk, index,
+              int(offset) & 0xFFFFFFFF, int(log2_base), int(rounded),
+              acc.device.index, stream)
+    build.check(name, code)
+    return out
+
+
 def step_context(variant, acc, bara_t, key, start, chunk, *, offset,
                  log2_base):
     """K6: steps [start, start + chunk) of ``variant``.  A CUDA tensor runs
@@ -148,44 +198,14 @@ def step_context(variant, acc, bara_t, key, start, chunk, *, offset,
     if variant not in VARIANTS:
         raise ValueError("unknown variant %r; the variants are %s"
                          % (variant, VARIANTS))
-    if cmux.check_acc(acc, "step_context") != MASK1:
-        raise ValueError("step_context takes mask1 = %d, got %d"
-                         % (MASK1, acc.shape[1]))
-    if bara_t.dtype != torch.int32 or bara_t.dim() != 2 \
-            or bara_t.shape[1] != acc.shape[0]:
-        raise ValueError("bara_t must be int32 (n, B), got %s %s"
-                         % (bara_t.dtype, tuple(bara_t.shape)))
-    n = bara_t.shape[0]
-    rounded = cmux.check_key(key, (n,), "step_context", MASK1)
-    if key.shape[-4] != G:
-        raise ValueError("step_context takes l = %d, got a key of G = %d"
-                         % (DECOMP, key.shape[-4]))
-    start, chunk = int(start), int(chunk)
-    if chunk < 1 or start < 0 or start + chunk > n:
-        raise ValueError("steps [%d, %d) are not inside the %d-step rotation"
-                         % (start, start + chunk, n))
-    if not (acc.device == bara_t.device == key.device):
-        raise ValueError("acc, bara_t and key must be on one device")
+    rounded, start, chunk = check_chunk("step_context", acc, bara_t, key,
+                                        start, chunk)
     if acc.device.type == 'cpu':
         return step_context_plain(variant, acc, bara_t, key, start, chunk,
                                   offset=offset, log2_base=log2_base)
-    if acc.device.type != 'cuda':
-        raise ValueError("step_context runs on CUDA or CPU, not %s"
-                         % acc.device)
-    if not (acc.is_contiguous() and bara_t.is_contiguous()
-            and key.is_contiguous()):
-        raise ValueError("step_context takes contiguous tensors")
-    if not 1 <= log2_base <= 16:
-        raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
-    from ..kernels import build
-    fn = build.entry("step_context")
-    out = torch.empty_like(acc)
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), bara_t.data_ptr(),
-              key.data_ptr(), acc.shape[0], start, chunk,
-              VARIANTS.index(variant), int(offset) & 0xFFFFFFFF,
-              int(log2_base), int(rounded), acc.device.index, stream)
-    build.check("step_context", code)
+    out = launch_chunk("step_context", VARIANTS.index(variant), acc, bara_t,
+                       key, start, chunk, rounded, offset=offset,
+                       log2_base=log2_base)
     launches += 1
     return out
 

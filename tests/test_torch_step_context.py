@@ -183,20 +183,26 @@ def test_step_context_rejects_bad_input(inputs):
                         **KW)
 
 
-def test_exp_round4_modes_on_cpu(capsys):
-    """``profile`` and ``context`` in-process on the CPU at batch 4 (both
-    engines, host times only); ``tricks`` exits naming Queue B."""
+def test_exp_round4_modes_on_cpu(capsys, monkeypatch):
+    """``profile``, ``context`` and ``tricks`` in-process on the CPU at batch
+    4 (both engines, host times only; ``tricks`` at 2 steps with
+    ``NUFHE_TRICKS`` picking t8, each variant equal to K3's plain
+    version); an unknown mode exits."""
     import os
     import sys
     sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "tools"))
     import exp_round4_torch as e4
     from nufhe_tpu_torch.ops import step_profile as spf
+    monkeypatch.setenv("NUFHE_TRICKS", "t8")
     for exact in (True, False):
         res = e4.context(4, "cpu", n_steps=2, exact=exact, reps=1)
         assert set(res) == set(sc.VARIANTS)
         res = e4.profile(4, "cpu", exact=exact, reps=1)
         assert set(res) == set(spf.PARTS)
-    with pytest.raises(SystemExit, match="Queue B"):
-        e4.main(["tricks", "4", "--device", "cpu"])
+        res = e4.tricks(4, "cpu", n_steps=2, exact=exact, reps=1)
+        assert set(res) == {"baseline", "t8+t9", "t8"}
+        assert res["t8"]["exact"] and res["t8+t9"]["exact"]
+    with pytest.raises(SystemExit, match="unknown mode"):
+        e4.main(["trick", "4", "--device", "cpu"])
     assert "host ms (CPU)" in capsys.readouterr().out

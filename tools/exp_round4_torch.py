@@ -4,7 +4,9 @@
 Usage:
     python tools/exp_round4_torch.py profile [batch]   # K9, prefixes of a step
     python tools/exp_round4_torch.py context [batch]   # K6, in-loop stand-ins
+    python tools/exp_round4_torch.py tricks [batch]    # K11, step tricks
     NUFHE_BENCH_TRANSFORM=fft python tools/exp_round4_torch.py context 16384
+    NUFHE_TRICKS=t8 python tools/exp_round4_torch.py tricks 16384
     ... --device cpu    # the plain versions on the CPU (host seconds only)
 
 ``profile`` (K9, ``ops/step_profile.py``): one launch a cumulative prefix of
@@ -14,9 +16,13 @@ neighbours are the stages' costs outside the loop.  ``context`` (K6,
 ``ops/step_context.py``): a 100-step rotation in one K3 launch (the card's
 counterpart of the TPU's in-program loop), one stage of every step swapped
 for a stand-in; "FULL" minus a variant is that stage's cost inside the
-loop.  Both read ``NUFHE_BENCH_TRANSFORM`` (exact engine by default) and
-print the JAX names.  ``tricks`` (the step variants t5-t10) is not ported
-yet (ROADMAP Queue B, T4).
+loop.  ``tricks`` (K11, ``ops/step_tricks.py``): the same 100-step rotation
+with one trick of the TPU's step in its card form (t10, t9, t8+t9, t8, t6,
+t7, t5), each checked equal to K3's rotation on the same inputs (t8 and
+t8+t9 to K3 on the evened amounts ``bara & ~1``), ms a step;
+``NUFHE_TRICKS`` picks variants by a substring of their names, as the JAX
+script's does.  All three read ``NUFHE_BENCH_TRANSFORM`` (exact engine by
+default) and print the JAX names.
 
 Timing on the card: CUDA events around ``reps`` launches after a warm-up
 call (``nufhe_tpu_torch.utils.profiling.time_ms``).  The JAX script's
@@ -40,7 +46,9 @@ import torch
 
 from microbench_torch import (  # noqa: E402
     _setup, _where, exact_engine, time_ms)
+from nufhe_tpu_torch.ops import blind_rotate as brc  # noqa: E402
 from nufhe_tpu_torch.ops import step_context as sc  # noqa: E402
+from nufhe_tpu_torch.ops import step_tricks as st  # noqa: E402
 from nufhe_tpu_torch.ops import step_profile as spf  # noqa: E402
 from nufhe_tpu_torch.ops import transform as tf  # noqa: E402
 
@@ -99,6 +107,57 @@ def context(batch, device="cuda", n_steps=100, exact=None, reps=3):
     return out
 
 
+def selected(names, labels, env):
+    """The names whose label holds one of the comma-separated substrings of
+    environment variable ``env`` (all when it is unset)."""
+    sel = os.environ.get(env)
+    if not sel:
+        return list(names)
+    return [n for n in names if any(s in labels[n] for s in sel.split(","))]
+
+
+def against_k3(batch, device, n_steps, exact, reps, names, labels, run,
+               even=()):
+    """The ``n_steps``-step rotation of ``context_inputs`` in one K3 launch
+    (the baseline), then ``run(name, ...)`` for each of ``names``, each
+    checked equal to K3's (those in ``even`` to K3's on the evened
+    amounts) and timed: {name: {"ms_per_step", and "exact" for the
+    names}}; raises if one is not K3's."""
+    if exact is None:
+        exact = exact_engine()
+    acc, bara_t, key, kw = context_inputs(batch, device, n_steps, exact)
+    print("mode=%s batch=%d n_steps=%d" % (_mode(exact), batch, n_steps),
+          flush=True)
+    ref = {False: brc.blind_rotate_chunk(acc, bara_t, key, 0, n_steps, **kw)}
+    if even:
+        ref[True] = brc.blind_rotate_chunk(acc, st.even_powers(bara_t), key,
+                                           0, n_steps, **kw)
+    t = time_ms(lambda: brc.blind_rotate_chunk(acc, bara_t, key, 0, n_steps,
+                                               **kw), reps, device)
+    out = {"baseline": {"ms_per_step": t / n_steps}}
+    print("%-28s: %9.4f %s/step" % ("baseline (K3)", t / n_steps,
+                                     _where(device)), flush=True)
+    for name in names:
+        same = torch.equal(run(name, acc, bara_t, key, 0, n_steps, **kw),
+                           ref[name in even])
+        t = time_ms(lambda: run(name, acc, bara_t, key, 0, n_steps, **kw),
+                    reps, device)
+        out[name] = {"ms_per_step": t / n_steps, "exact": same}
+        print("%-28s: %9.4f %s/step  exact=%s" % (
+            labels[name], t / n_steps, _where(device), same), flush=True)
+        if not same:
+            raise AssertionError("%s is not K3's rotation" % labels[name])
+    return out
+
+
+def tricks(batch, device="cuda", n_steps=100, exact=None, reps=3):
+    """K11: each variant selected by ``NUFHE_TRICKS`` beside K3
+    (``against_k3``)."""
+    return against_k3(batch, device, n_steps, exact, reps,
+                      selected(st.VARIANTS, st.LABELS, "NUFHE_TRICKS"),
+                      st.LABELS, st.step_trick, even=st.EVEN)
+
+
 def main(argv):
     device = "cuda"
     if "--device" in argv:
@@ -107,18 +166,13 @@ def main(argv):
         argv = argv[:i] + argv[i + 2:]
     mode = argv[0] if argv else "profile"
     batch = int(argv[1]) if len(argv) > 1 else 16384
-    if mode == "tricks":
-        raise SystemExit("tricks (the step variants t5-t10) is not ported "
-                         "yet: ROADMAP Queue B, T4")
-    if mode not in ("profile", "context"):
-        raise SystemExit("unknown mode %r: profile or context" % mode)
+    if mode not in ("profile", "context", "tricks"):
+        raise SystemExit("unknown mode %r: profile, context or tricks" % mode)
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu for the plain "
                          "versions on the CPU")
-    if mode == "profile":
-        profile(batch, device)
-    else:
-        context(batch, device)
+    {"profile": profile, "context": context, "tricks": tricks}[mode](batch,
+                                                                    device)
 
 
 if __name__ == "__main__":
