@@ -79,7 +79,9 @@ and prints no result line):
    keygen of the same seed, the encryptions, both modes) and is joined
    after phase 8, so that it overlaps the card phases;
    the host-made keys' NAND on the default and the lanes path, both
-   engines, equals the card-made keys' bit for bit; then NAND at each of
+   engines, equals the card-made keys' bit for bit; keygen on the card
+   with ``SecureRNG``: its NAND on 4096 inputs (10 K3 + 1 K2) decrypts to
+   the truth table; then NAND at each of
    the JAX package's one-knob variants (``tlwe_mask_size=2``,
    ``bs_decomp_length=3``, ``ks_log2_base=3``), keys made on the card, in
    both engines, on the default path (2 K3 + 1 K2) and the lanes path (100
@@ -105,8 +107,9 @@ and prints no result line):
    the K3 and K2 launches its circuit implies (10 K3 + 1 K2 a
    bootstrapped call: 3w calls ripple, ``kogge_stone_calls`` more);
 8. the ripple / Kogge-Stone crossover: ``uint_add`` at batch {1, 16, 128,
-   1024} x width {8, 16}, one synchronised host-clock time a form after a
-   checked first call, printed as one ``adder_crossover`` JSON line;
+   1024} x width {8, 16} through ``tools/adder_crossover_torch.sweep``,
+   one synchronised host-clock time a form after a first call that must
+   decrypt to numpy's sum, printed as one ``adder_crossover`` JSON line;
 9. ``multi_device``: ``nufhe_tpu_torch.parallel`` in a world-1 NCCL
    process group (a FileStore in a temp dir, destroyed at the end), with
    the n=500 keys made on the card, each path with the launch counts set to
@@ -161,7 +164,15 @@ and prints no result line):
    plain version, then ``tools/exp_round4_torch.py tricks`` and
    ``tools/exp_round5_torch.py``; T8 (K13) every probe against its plain
    version, then ``tools/exp_inverse_torch.py``; each part's seconds;
-14. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
+14. ``bench_ports``: ``bench_torch.py``'s six cells
+   (``tools/bench_cells_torch.py``: NAND 'FFT' and 'NTT', MUX in both, NAND
+   'FFT' at batch 65536 and at ``NUFHE_TPU_COARSE_PHASE_BITS=1``) at RUNS 1,
+   INNER 2, each a process of its own: each chain decrypts right, its
+   measured device idle share lies in [0, 1] and a gate call launches 10
+   K3 + 1 K2; then ``bench_scaling_torch.py --devices 1`` (one NCCL rank,
+   500 K4 + 1 K2 a call, its output bit-equal to ``bootstrap_device``);
+   one ``bench_ports`` JSON line;
+15. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The bound of a kernel is the larger of its bytes (each input read once,
@@ -232,13 +243,6 @@ INT_BATCH = 1024           # integers of the smaller integer circuits
 DIV_BATCH = 256            # integers of the divider
 CROSSOVER_BATCHES = (1, 16, 128, 1024)
 CROSSOVER_WIDTHS = (8, 16)
-
-
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps):
@@ -976,34 +980,37 @@ def integer_circuits(nft, dev, rng, secret, vms):
                 (ca, cb), (uint_bits(nft, q, 8), uint_bits(nft, rem, 8)))
 
 
-def adder_crossover(nft, dev, rng, secret, vm, smi):
+def adder_crossover(nft, dev, secret, cloud, smi):
     """``uint_add`` in both forms over a grid of batch and width on the
-    default path: one synchronised host-clock time each, after a first
-    call at that shape that is checked against numpy."""
-    crng = nft.DeterministicRNG(SEED + 4)
-    grid = []
-    for width in CROSSOVER_WIDTHS:
-        for batch in CROSSOVER_BATCHES:
-            a, b = (rng.randint(0, 2**width, batch) for _ in range(2))
-            ca, cb = (nft.encrypt(crng, secret, uint_bits(nft, v, width),
-                                  device=dev) for v in (a, b))
-            want = uint_bits(nft, (a + b) % 2**width, width)
-            row = dict(batch=batch, width=width)
-            for form, parallel in (("ripple", False), ("kogge_stone", True)):
-                out = vm.uint_add(ca, cb, parallel=parallel)
-                if not np.array_equal(nft.decrypt(secret, out), want):
-                    raise AssertionError("uint_add %s %d x %d decrypts wrong"
-                                         % (form, batch, width))
-                torch.cuda.synchronize()
-                t0 = time.time()
-                vm.uint_add(ca, cb, parallel=parallel)
-                torch.cuda.synchronize()
-                row[form + "_ms"] = (time.time() - t0) * 1e3
-            row["winner"] = min(("ripple", "kogge_stone"),
-                                key=lambda f: row[f + "_ms"])
-            grid.append(row)
+    default path, through ``tools/adder_crossover_torch.sweep``: one
+    synchronised host-clock time each, after a first call at that shape
+    whose decryption must equal numpy's sum."""
+    import adder_crossover_torch as crossover
+    grid = crossover.sweep(cloud, secret, nft.DeterministicRNG(SEED + 4),
+                           CROSSOVER_BATCHES, CROSSOVER_WIDTHS, dev, reps=1)
+    wrong = [(e["batch"], e["width"], form) for e in grid
+             for form in ("ripple", "kogge_stone") if not e[form + "_ok"]]
+    if wrong:
+        raise AssertionError("uint_add decrypts wrong at %s" % wrong)
     print(json.dumps({"adder_crossover": grid, "card": smi,
                       "path": "default NTT, n=500, N=1024"}))
+
+
+def secure_rng_gate(nft, dev, rng):
+    """Keygen on the card with ``SecureRNG`` (n=500): the NAND of 4096
+    inputs, encrypted with it too, decrypts to the truth table through
+    10 K3 + 1 K2."""
+    srng = nft.SecureRNG()
+    (secret, cloud), t_keygen = synced(
+        lambda: nft.make_key_pair(srng, lwe_size=N_LWE))
+    if cloud.bootstrap_key.bk_coeff.device != dev:
+        raise AssertionError("SecureRNG keygen did not run on the card")
+    print("SecureRNG keygen on the card (n=%d): %.3f s" % (N_LWE, t_keygen))
+    x, y = (rng.randint(0, 2, MAIN_BATCH).astype(bool) for _ in range(2))
+    cx, cy = (nft.encrypt(srng, secret, v, device=dev) for v in (x, y))
+    run_gate(nft, "SecureRNG keys, default NTT", secret,
+             nft.VirtualMachine(cloud, device=dev), "gate_nand", (cx, cy),
+             ~(x & y), gate_launches(1))
 
 
 def variant_gates(nft, dev, rng):
@@ -2206,6 +2213,64 @@ def run_examples():
                                  % (name, proc.stdout, proc.stderr))
 
 
+def bench_ports(smi):
+    """Phase ``bench_ports``: ``bench_torch.py``'s six cells
+    (``tools/bench_cells_torch.py``) at RUNS 1, INNER 2, each a process of
+    its own (its launch counts set to 0 just before its timed chains and
+    read just after), and ``bench_scaling_torch.py`` on one card; each
+    must be correct, with a measured idle share in [0, 1] and 10 K3 + 1 K2
+    launches a gate call (500 K4 + 1 K2 on the scaling path)."""
+    import bench_cells_torch as cells
+    torch.cuda.empty_cache()
+    want = {"blind_rotate_chunk": N_LWE // CHUNK, "keyswitch": 1}
+    report = {}
+    for name in cells.CELLS:
+        t0 = time.time()
+        out = cells.run_cell(name, {"NUFHE_BENCH_RUNS": "1",
+                                    "NUFHE_BENCH_INNER": "2"}, timeout=300)
+        metric, d = out["metric"], out["detail"]
+        idle = d["device_idle_share"]
+        if set(metric) != {"metric", "value", "unit", "vs_baseline"}:
+            raise AssertionError("bench_torch %s: metric keys %s"
+                                 % (name, sorted(metric)))
+        if d["correct"] is not True:
+            raise AssertionError("bench_torch %s: the chain decrypts wrong"
+                                 % name)
+        if not (isinstance(idle, float) and 0.0 <= idle <= 1.0):
+            raise AssertionError("bench_torch %s: idle share %r"
+                                 % (name, idle))
+        if d["launches_per_call"] != want:
+            raise AssertionError("bench_torch %s: launches a call %s, not %s"
+                                 % (name, d["launches_per_call"], want))
+        report[name] = {
+            "metric": metric["metric"], "ms_bit": metric["value"],
+            "correct": d["correct"], "max_noise_frac": d["max_noise_frac"],
+            "idle_share": idle, "launches_per_call": d["launches_per_call"],
+            "kernels_per_call": d["kernels_per_call"],
+            "peak_memory_bytes": d["peak_memory_bytes"],
+            "nvcc_s": d["nvcc_s"], "seconds": round(time.time() - t0, 1)}
+        print("bench_torch %s: %s = %s, idle share %.4f, correct, %.1f s"
+              % (name, metric["metric"], metric["value"], idle,
+                 report[name]["seconds"]))
+    t0 = time.time()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "bench_scaling_torch.py"),
+         "--devices", "1"], cwd=root, capture_output=True, text=True,
+        timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError("bench_scaling_torch.py failed (rc %d):\n%s"
+                             % (proc.returncode, proc.stderr[-3000:]))
+    line = cells.last_json(proc.stderr)
+    summary = cells.last_json(proc.stdout)
+    if not (line["bit_exact"] and line["launches_per_call"]
+            == {"lanes_step": N_LWE, "keyswitch": 1}):
+        raise AssertionError("bench_scaling_torch.py: %s" % line)
+    line["seconds"] = round(time.time() - t0, 1)
+    report["scaling_1_card"] = dict(line, summary=summary)
+    print(json.dumps({"bench_ports": report, "card": smi}))
+
+
 def build_kernels():
     from nufhe_tpu_torch.kernels import build
     t0 = time.time()
@@ -2221,8 +2286,11 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    sys.path.append(os.path.join(root, "tools"))
     import nufhe_tpu_torch as nft
+    from bench_torch import nvidia_smi_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -2310,12 +2378,13 @@ def smoke(nft, smi, dev, rng, oracle_job):
     native_keygen(nft, dev, cloud)
     launches, vms, nand = gate_paths(nft, dev, rng, secret, cloud, cloud_fft)
     host_key_gates(nft, dev, secret, host_prepared, nand)
+    secure_rng_gate(nft, dev, rng)
     variant_gates(nft, dev, rng)
     t0 = time.time()
     containers_on_card(nft, dev, secret, cloud, cloud_fft, nand, host_prepared)
     del host_prepared
     integer_circuits(nft, dev, rng, secret, vms)
-    adder_crossover(nft, dev, rng, secret, vms["default NTT"], smi)
+    adder_crossover(nft, dev, secret, cloud, smi)
     print("containers, integer circuits and crossover: %.1f s"
           % (time.time() - t0))
     oracle_phase(nft, dev, secret, cloud, cloud_fft, oracle_job)
@@ -2325,14 +2394,13 @@ def smoke(nft, smi, dev, rng, oracle_job):
             raise AssertionError("kernel %s was not launched on its path" % name)
         results[name]["launches"] = launches[name]
     timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results)
-    sys.path.append(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                 "tools"))
     import microbench_torch as microbench
     step_parts_timing(dev, results, microbench, smi)
     microbench_phase(dev, microbench, smi)
     step_experiments(dev, results, microbench, smi)
     step_variants(dev, results, microbench, smi)
     run_examples()
+    bench_ports(smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

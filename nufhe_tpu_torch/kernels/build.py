@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -62,6 +63,9 @@ KERNELS = {
 
 _lock = threading.Lock()
 _loaded = {}
+# wall seconds this process spent waiting on nvcc (0 when every library it
+# loaded was already in _build/)
+nvcc_seconds = 0.0
 
 
 def nvcc_path():
@@ -111,7 +115,9 @@ def _finish(name, job):
 
 def build_all():
     """Compile every kernel that is not built yet, all in parallel."""
+    global nvcc_seconds
     with _lock:
+        t0 = time.time()
         jobs = {name: _compile(name) for name in KERNELS}
         errors = []
         for name, job in jobs.items():
@@ -120,6 +126,8 @@ def build_all():
                     _finish(name, job)
                 except RuntimeError as exc:
                     errors.append(str(exc))
+        if any(jobs.values()):
+            nvcc_seconds += time.time() - t0
         if errors:
             raise RuntimeError("\n".join(errors))
 
@@ -133,15 +141,18 @@ def build_log(name):
 
 def entry(name):
     """The C entry point of kernel ``name``, building it first if needed."""
+    global nvcc_seconds
     with _lock:
         fn = _loaded.get(name)
         if fn is not None:
             return fn
         _, lib_path = _library_path(name)
         if not lib_path.exists():
+            t0 = time.time()
             job = _compile(name)
             if job is not None:
                 _finish(name, job)
+                nvcc_seconds += time.time() - t0
         lib = ctypes.CDLL(str(lib_path))
         _, symbol, argtypes = KERNELS[name]
         fn = getattr(lib, symbol)

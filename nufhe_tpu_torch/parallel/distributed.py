@@ -139,8 +139,6 @@ def run_multiprocess_dryrun(nprocs: int = 4, timeout: float = 900.0,
     failure.  ``out_path``: rank 0 writes the gathered outputs there (npz).
     (The JAX package's ``local_devices`` has no counterpart: a process
     drives one device.)"""
-    import socket
-    import subprocess
     import sys
 
     kind = 'cuda' if device is None else torch.device(device).type
@@ -150,17 +148,35 @@ def run_multiprocess_dryrun(nprocs: int = 4, timeout: float = 900.0,
         raise RuntimeError(
             "run_multiprocess_dryrun runs NCCL on CUDA devices and none is "
             "available; pass device='cpu' to run gloo on the CPU")
+    args = ["--device", kind, "--lwe-size", str(lwe_size)]
+    if batch is not None:
+        args += ["--batch", str(batch)]
+    if out_path is not None:
+        args += ["--out", str(out_path)]
+    outs = run_processes(
+        lambda coord, i: [sys.executable, "-m",
+                          "nufhe_tpu_torch.parallel._mp_worker", coord,
+                          str(nprocs), str(i)] + args,
+        nprocs, timeout=timeout, name="mp_worker")
+    return [out.strip().splitlines()[-1] for out in outs]
+
+
+def run_processes(argv, nprocs, timeout=900.0, name="process"):
+    """Start ``nprocs`` cooperating processes, ``argv(coordinator, rank)``
+    each (``coordinator``: a free ``127.0.0.1:port`` for their process
+    group), from the repo root with it on ``PYTHONPATH``, one torch thread
+    and ``LOCAL_RANK``/``LOCAL_WORLD_SIZE`` set; wait for all.  Returns
+    each one's output (stdout and stderr); raises if any failed, after
+    retrying a lost race for the port."""
+    import socket
+    import subprocess
+
     repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     env = dict(os.environ)
     env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
     env["LOCAL_WORLD_SIZE"] = str(nprocs)
-    args = ["--device", kind, "--lwe-size", str(lwe_size)]
-    if batch is not None:
-        args += ["--batch", str(batch)]
-    if out_path is not None:
-        args += ["--out", str(out_path)]
 
     def attempt():
         # bind/close picks a free port; another process can take it before
@@ -171,9 +187,7 @@ def run_multiprocess_dryrun(nprocs: int = 4, timeout: float = 900.0,
         sock.close()
         coord = "127.0.0.1:%d" % port
         procs = [subprocess.Popen(
-            [sys.executable, "-m", "nufhe_tpu_torch.parallel._mp_worker",
-             coord, str(nprocs), str(i)] + args,
-            env=dict(env, LOCAL_RANK=str(i)), cwd=repo_root,
+            argv(coord, i), env=dict(env, LOCAL_RANK=str(i)), cwd=repo_root,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for i in range(nprocs)]
         outs = []
@@ -195,10 +209,10 @@ def run_multiprocess_dryrun(nprocs: int = 4, timeout: float = 900.0,
         failed = [(i, p, out) for i, (p, out) in enumerate(zip(procs, outs))
                   if p.returncode != 0]
         if not failed:
-            return [out.strip().splitlines()[-1] for out in outs]
+            return outs
         i, p, out = failed[0]
-        last_error = RuntimeError("mp_worker %d failed (rc %d):\n%s"
-                                  % (i, p.returncode, out[-3000:]))
+        last_error = RuntimeError("%s %d failed (rc %d):\n%s"
+                                  % (name, i, p.returncode, out[-3000:]))
         if not any(m in out.lower() for m in bind_markers):
             raise last_error
     raise last_error
