@@ -31,7 +31,10 @@ and prints no result line):
    (``ops/step_profile``, the rotation-family profile): every part in
    both forms, its FULL step also against K1; K8 (``ops/step_overlap``,
    the split-halves step) against its plain version and K1; K7
-   (``ops/mac_dot``, the MAC dot alone) in its int8 and bf16 forms; at
+   (``ops/mac_dot``, the MAC dot alone) in its int8 and bf16 forms, at
+   batch 101 and 256 and at 16388 (aligned, not a multiple of the 64-sample
+   tile: the TMA path and a ragged tile), and at 256 with x at a 4-byte
+   offset (the masked path at an aligned batch); at
    batch 101 and 256 K10 (``ops/step_schedules``, K1 in seven schedules)
    in both key forms against its plain version and K1, K11
    (``ops/step_tricks``) and K12 (``ops/rotate_forms``), K3 with a stage
@@ -188,14 +191,17 @@ it: they take longer).  A kernel's ``launches`` in the JSON line is its
 count in the gate of the path that runs it (K1: the per-step path; K2
 and K3: the default path; K4: the lanes path); K5's is its count on the
 microbenchmark's path (``parts``), which is where it runs, and K6-K13's
-theirs on their tools' paths ('NTT'; K7 int8).  K6's, K11's and K12's ms,
-plain ms and bound in that line are at 4 steps, the length at which their
-plain versions run at 2^14 (K11's and K12's of their first variant, t10
-and t11); their 100-step times are in their own lines.  K10's are its
-"v3" schedule's (K1's code), K13's its "sliced" probe's (K3's DIT).  K7's library time
-is its products alone (64 ``torch._int_mm``), a part of its work.  The
-collectives between the grids of a tensor-parallel step are counted apart
-(``lanes_step.collectives``).
+theirs on their tools' paths ('NTT'; K7 both forms).  K6's, K11's and
+K12's ms, plain ms and bound in that line are at 4 steps, the length at
+which their plain versions run at 2^14 (K11's and K12's of their first
+variant, t10 and t11); their 100-step times are in their own lines.
+K10's are its "v3" schedule's (K1's code), K13's its "sliced" probe's
+(K3's DIT).  K7's ms, plain ms, bound and library ms are its int8
+form's; its ``forms`` key holds both forms' (and their tera-operations a
+second); its library time is its products alone (64 ``torch._int_mm`` for
+int8, one ``torch.bmm`` with a float32 result for bf16), a part of its
+work.  The collectives between the grids of a tensor-parallel step are
+counted apart (``lanes_step.collectives``).
 """
 
 import json
@@ -1578,8 +1584,9 @@ def check_step_experiments(nft, dev, rng, results):
     partial sample group or tile) and 256: K6 every variant in both key
     forms, 4 steps from step 2 of an 8-step key; K9 every part in both
     forms, its FULL step also against K1; K8 also against K1; K7 both
-    forms.  These launches are comparisons: the counts are set to 0
-    afterwards."""
+    forms, also at 16388 (the TMA path with a ragged tile) and with x at a
+    4-byte offset (the masked path at an aligned batch).  These launches
+    are comparisons: the counts are set to 0 afterwards."""
     from nufhe_tpu_torch.ops import (cmux, mac_dot as md, step_context as sc,
                                      step_overlap as so, step_profile as spf)
     tp = nft.NuFHEParameters().tgsw_params
@@ -1619,14 +1626,19 @@ def check_step_experiments(nft, dev, rng, results):
                                acc, p, key_row, **kw)))
                 record_err(results, "step_overlap", "K8 vs K1, batch %d"
                            % batch, max_abs_err(got, k1))
-    for batch in (101, 256):
-        x, rhs = random_mac_inputs(rng, batch, dev)
+    for batch in (101, 256, TIMING_BATCH + 4, "256, x at a 4-byte offset"):
+        if batch == "256, x at a 4-byte offset":        # the masked path
+            x, rhs = random_mac_inputs(rng, 256, dev)
+            x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+        else:
+            x, rhs = random_mac_inputs(rng, batch, dev)
         for form in md.FORMS:
             got = md.mac_dot(x, rhs[form])
             want = md.mac_dot_plain(x, rhs[form])
             torch.cuda.synchronize()
-            record_err(results, "mac_dot", "K7 %s vs plain, batch %d"
+            record_err(results, "mac_dot", "K7 %s vs plain, batch %s"
                        % (form, batch), max_abs_err(got, want))
+            del got, want
     reset_counts()
 
 
@@ -1772,7 +1784,7 @@ def mac_dot_phase(dev, results, e8, smi):
                           bound_ms=bound, bound_by=by,
                           library_ms=res[form]["library_ms"],
                           tops=res[form]["tops"])
-    results["mac_dot"].update(launches=counts["mac_dot"],
+    results["mac_dot"].update(launches=counts["mac_dot"], forms=line,
                               **{k: line["int8"][k] for k in (
                                   "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")})
@@ -2404,8 +2416,9 @@ def smoke(nft, smi, dev, rng, oracle_job):
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: results[name][k] for k in keys}
-                                  for name in KERNEL_NAMES]}))
+    print(json.dumps({"kernels": [
+        {k: results[name][k] for k in keys + ("forms",)
+         if k in results[name]} for name in KERNEL_NAMES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

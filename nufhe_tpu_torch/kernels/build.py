@@ -61,6 +61,10 @@ KERNELS = {
                       [_P, _P, _I, _I, _I, _P]),
 }
 
+# every kernel's nvcc flags (``-Xptxas -v`` for the build log)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
 _lock = threading.Lock()
 _loaded = {}
 # wall seconds this process spent waiting on nvcc (0 when every library it
@@ -95,9 +99,7 @@ def _compile(name):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, str(source)]
+    cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", tmp, str(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib

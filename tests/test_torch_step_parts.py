@@ -209,7 +209,7 @@ def _imports(path):
     "tools/microbench_torch.py", "tools/exp_round4_torch.py",
     "tools/exp_int8_torch.py", "tools/exp_overlap_torch.py",
     "tools/exp_round3_torch.py", "tools/exp_round5_torch.py",
-    "tools/exp_inverse_torch.py",
+    "tools/exp_inverse_torch.py", "tools/mac_dot_cuts_torch.py",
     "examples/gate_nand_torch.py",
     "examples/gate_nand_low_level_torch.py", "examples/integer_adder_torch.py",
     "examples/serialization_torch.py", "examples/transform_modes_torch.py"])

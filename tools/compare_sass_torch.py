@@ -6,9 +6,10 @@
 Each tree is a checkout of this repository (NEW_TREE defaults to the one
 that holds this script); the kernels default to K1 and K3 (``cmux_step``,
 ``blind_rotate_chunk``).  Each tree builds its own libraries in a process
-of its own (``nufhe_tpu_torch/kernels/build.py``, into the tree's
-``_build/``); then, for each kernel, the ``cuobjdump -sass`` body of every
-function (its header line, which holds the mangled name, left out) is
+of its own (``nufhe_tpu_torch/kernels/build.py``, every kernel of the tree
+at once, into the tree's ``_build/``); then, for each kernel, the
+``cuobjdump -sass`` body of every function (its header line, which holds
+the mangled name, left out) is
 compared as a multiset between the trees, and both trees' ``ptxas``
 register and spill lines are printed.  Exits 1 if any kernel's code
 differs.  A template argument added with a default changes the mangled
@@ -28,6 +29,7 @@ def build(tree, names):
     """Build ``names`` in ``tree``; returns {name: library path}."""
     code = ("import json, sys; sys.path.insert(0, %r)\n"
             "from nufhe_tpu_torch.kernels import build\n"
+            "build.build_all()\n"
             "for n in %r: build.entry(n)\n"
             "print(json.dumps({n: str(build._library_path(n)[1]) "
             "for n in %r}))" % (tree, names, names))

@@ -5,6 +5,13 @@ kernel K7, ``ops/mac_dot.py``), in its int8 and bf16 forms, unless
 Usage:
     python tools/exp_int8_torch.py [batch]             # default 16384
     python tools/exp_int8_torch.py [batch] --device cpu
+    python tools/exp_int8_torch.py [batch] --tree OLD_TREE
+
+``--tree`` imports ``nufhe_tpu_torch`` (and so K7's wrapper and CUDA
+source) from another checkout of this repository, for example a parent
+commit unpacked with ``git archive``, and times it with this script's
+code, so that two commits' kernels are compared by one method in one
+session.
 
 The data are the JAX script's, drawn in its order from seed 0: ``rhs``
 (64, 256, 384) int8 in [-127, 128) (and its bf16 copy) and ``x`` (64, 256,
@@ -17,8 +24,10 @@ for int8, and for bf16 one ``torch.bmm`` with a float32 result where the
 installed PyTorch has one (``out_dtype``) and it is exact on these inputs,
 else "none".
 
-Timing on the card: CUDA events around ``reps`` calls after a warm-up
-call (``nufhe_tpu_torch.utils.profiling.time_ms``); the JAX script's sync
+Timing on the card: CUDA events around ``reps`` calls after ``WARMUP``
+untimed ones (``nufhe_tpu_torch.utils.profiling.time_ms``: a few
+milliseconds of work first, so that the first form timed does not run
+while the card's clocks still rise); the JAX script's sync
 subtraction and its 512-sample TPU tile have no counterpart (see
 ``tools/microbench_torch.py``).  On the CPU the times are host seconds of
 the plain versions, no device metric.
@@ -30,14 +39,19 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
-import torch
+if "--tree" in sys.argv:
+    sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--tree") + 1]))
 
-from microbench_torch import _where, time_ms  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# the tree's package first: microbench_torch puts this checkout's root ahead
 from nufhe_tpu_torch.ops import mac_dot as md  # noqa: E402
+from microbench_torch import _where, time_ms  # noqa: E402
 
 L, C, Q = 64, md.C, md.Q
 CHECK = 512            # samples of the exactness check (the JAX tile)
+WARMUP = 5             # untimed chained calls before the timed ones
 
 
 def inputs(batch, device):
@@ -95,7 +109,7 @@ def run(batch, device="cuda", reps=10):
         def chained():
             state[0] = md.mac_dot(state[0], rhs[form])
 
-        ms = time_ms(chained, reps, device)
+        ms = time_ms(chained, reps, device, warmup=WARMUP)
         res = {"exact": exact, "ms": ms, "tops": ops / ms / 1e9,
                "library_ms": None}
         line = "kernel %s: exact %s; %.4f %s  %.1f TOP/s" % (
@@ -114,6 +128,11 @@ def main(argv):
     if "--device" in argv:
         i = argv.index("--device")
         device = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    if "--tree" in argv:
+        i = argv.index("--tree")
+        print("K7 from %s" % os.path.dirname(os.path.dirname(
+            os.path.abspath(md.__file__))))
         argv = argv[:i] + argv[i + 2:]
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu for the plain "
