@@ -16,6 +16,7 @@ from .rng import DeterministicRNG, rand_gaussian_torus32, rand_uniform_torus32
 from .ops import lwe as dlwe
 from .models import gates
 from .models.gates import get_shape, result_shape
+from .utils.profiling import annotate
 
 
 def resolve_device(device=None) -> torch.device:
@@ -239,7 +240,9 @@ class VirtualMachine:
     derived from the operands (comparisons give one bit per integer,
     ``uint_divmod`` a (quotient, remainder) pair).  ``perf_params`` (a
     ``PerformanceParameters``; unset: the defaults) is resolved for
-    ``device`` once, here.
+    ``device`` once, here.  Each call runs inside the span
+    ``nufhe.vm.<op>`` (``utils/profiling.annotate``), the root of the gate
+    and bootstrap spans below it.
     """
 
     def __init__(self, cloud_key: NuFHECloudKey,
@@ -258,11 +261,13 @@ class VirtualMachine:
         return LweSampleArray.load(file, self.device)
 
     def _gate(self, name, *args, dest: LweSampleArray = None):
-        if dest is None:
-            dest = self.empty_ciphertext(
-                result_shape(*[get_shape(arg) for arg in args]))
-        getattr(gates, name)(self.cloud_key, dest, *args, device=self.device,
-                             perf_params=self.perf_params)
+        with annotate("nufhe.vm." + name):
+            if dest is None:
+                dest = self.empty_ciphertext(
+                    result_shape(*[get_shape(arg) for arg in args]))
+            getattr(gates, name)(self.cloud_key, dest, *args,
+                                 device=self.device,
+                                 perf_params=self.perf_params)
         return dest
 
     # these produce one encrypted bit per integer, not a full bit array
@@ -271,22 +276,25 @@ class VirtualMachine:
 
     def _uint(self, name, *args, dest: LweSampleArray = None, **kwds):
         from .models import integer
-        shape = result_shape(*[get_shape(x) for x in args])
-        # the integer circuits size their temporaries from the operand
-        # shapes, so broadcasting must happen here, not inside a gate
-        args = tuple(x if get_shape(x) == shape else x.broadcast_to(shape)
-                     for x in args)
-        kwds = dict(kwds, perf_params=self.perf_params, device=self.device)
-        if name == 'uint_divmod':  # two results: (quotient, remainder)
-            q, r = (dest if dest is not None
-                    else (self.empty_ciphertext(shape),
-                          self.empty_ciphertext(shape)))
-            return integer.uint_divmod(self.cloud_key, q, r, *args, **kwds)
-        if dest is None:
-            dest = self.empty_ciphertext(
-                shape[:-1] + (1,) if name in self._UINT_BIT_RESULT
-                else shape)
-        getattr(integer, name)(self.cloud_key, dest, *args, **kwds)
+        with annotate("nufhe.vm." + name):
+            shape = result_shape(*[get_shape(x) for x in args])
+            # the integer circuits size their temporaries from the operand
+            # shapes, so broadcasting must happen here, not inside a gate
+            args = tuple(x if get_shape(x) == shape
+                         else x.broadcast_to(shape) for x in args)
+            kwds = dict(kwds, perf_params=self.perf_params,
+                        device=self.device)
+            if name == 'uint_divmod':  # two results: (quotient, remainder)
+                q, r = (dest if dest is not None
+                        else (self.empty_ciphertext(shape),
+                              self.empty_ciphertext(shape)))
+                return integer.uint_divmod(self.cloud_key, q, r, *args,
+                                           **kwds)
+            if dest is None:
+                dest = self.empty_ciphertext(
+                    shape[:-1] + (1,) if name in self._UINT_BIT_RESULT
+                    else shape)
+            getattr(integer, name)(self.cloud_key, dest, *args, **kwds)
         return dest
 
     def __getattr__(self, name):

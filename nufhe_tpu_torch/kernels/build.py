@@ -20,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..utils.profiling import annotate
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
@@ -142,20 +144,22 @@ def build_log(name):
 
 
 def entry(name):
-    """The C entry point of kernel ``name``, building it first if needed."""
+    """The C entry point of kernel ``name``, building it first if needed;
+    the first load runs inside the span ``nufhe.kernels.load``."""
     global nvcc_seconds
     with _lock:
         fn = _loaded.get(name)
         if fn is not None:
             return fn
-        _, lib_path = _library_path(name)
-        if not lib_path.exists():
-            t0 = time.time()
-            job = _compile(name)
-            if job is not None:
-                _finish(name, job)
-                nvcc_seconds += time.time() - t0
-        lib = ctypes.CDLL(str(lib_path))
+        with annotate("nufhe.kernels.load"):
+            _, lib_path = _library_path(name)
+            if not lib_path.exists():
+                t0 = time.time()
+                job = _compile(name)
+                if job is not None:
+                    _finish(name, job)
+                    nvcc_seconds += time.time() - t0
+            lib = ctypes.CDLL(str(lib_path))
         _, symbol, argtypes = KERNELS[name]
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes

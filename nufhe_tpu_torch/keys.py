@@ -25,6 +25,7 @@ from .ops import lwe as dlwe
 from .ops import keygen, tgsw, transform
 from . import serialization
 from .utils import to_device, to_numpy
+from .utils.profiling import annotate
 
 
 def _keygen_device(on_device=None, device=None):
@@ -246,14 +247,15 @@ class BootstrapKey:
         ``rows_key_from_limbs``), equal to the transform of the same key."""
         dev = torch.device(dev)
         if dev not in self._device:
-            if self._from_compact():
-                key = transform.rows_key_from_limbs(self._two_sided_on(dev),
-                                                    dev)
-            elif self.bk_coeff is not None:
-                key = transform.bootstrap_key_transformed(
-                    self.bk_coeff, dev, self.accum_params.transform_type)
-            else:
-                key = transform.rows_key_from_limbs(self.limbs(), dev)
+            with annotate("nufhe.keys.prepare"):
+                if self._from_compact():
+                    key = transform.rows_key_from_limbs(
+                        self._two_sided_on(dev), dev)
+                elif self.bk_coeff is not None:
+                    key = transform.bootstrap_key_transformed(
+                        self.bk_coeff, dev, self.accum_params.transform_type)
+                else:
+                    key = transform.rows_key_from_limbs(self.limbs(), dev)
             self._device[dev] = key
         return self._device[dev]
 
@@ -266,14 +268,15 @@ class BootstrapKey:
         :meth:`set_mac_rhs` is uploaded as it is."""
         dev = torch.device(dev)
         if dev not in self._mac_rhs:
-            if self._mac_rhs_host is not None:
-                key = torch.from_numpy(self._mac_rhs_host).to(dev)
-            elif self._from_compact():
-                key = tgsw.expand_bootstrap_key_device_compact(
-                    *self.compact(), dev, chunk=50)
-            else:
-                key = tgsw.expand_bootstrap_key_device(self.limbs(), dev,
-                                                       chunk=50)
+            with annotate("nufhe.keys.prepare"):
+                if self._mac_rhs_host is not None:
+                    key = torch.from_numpy(self._mac_rhs_host).to(dev)
+                elif self._from_compact():
+                    key = tgsw.expand_bootstrap_key_device_compact(
+                        *self.compact(), dev, chunk=50)
+                else:
+                    key = tgsw.expand_bootstrap_key_device(self.limbs(), dev,
+                                                           chunk=50)
             self._mac_rhs[dev] = key
         return self._mac_rhs[dev]
 
@@ -396,8 +399,9 @@ class LweKeyswitchKey:
         which the numpy oracle packs."""
         dev = torch.device(dev)
         if dev not in self._device:
-            self._device[dev] = dlwe.prepare_keyswitch_device(
-                self.ks_a, self.ks_b, self.ks_cv, self.log2_base, dev)
+            with annotate("nufhe.keys.prepare"):
+                self._device[dev] = dlwe.prepare_keyswitch_device(
+                    self.ks_a, self.ks_b, self.ks_cv, self.log2_base, dev)
         return self._device[dev]
 
     def dump(self, file_obj):

@@ -19,6 +19,10 @@ Gate constants (reference lines):
   ORYN (0, 1/8) + a - b      gates.py:586-597
   NOT/COPY/CONSTANT: linear only; MUX: two no-keyswitch bootstraps run as
   one rotation over 2B samples, a sum, one keyswitch (gates.py:600-664).
+
+Every gate opens the span ``nufhe.gate``, a bootstrapped one also
+``nufhe.gate.linear`` around its broadcast and linear combination
+(``utils/profiling.annotate``).
 """
 
 import numpy as np
@@ -28,6 +32,7 @@ from ..numeric import bool_to_t32, phase_to_t32, wrap_i32
 from ..ops import bootstrap as dboot
 from ..ops import lwe as dlwe
 from ..performance import PerformanceParameters
+from ..utils.profiling import annotate, spanned
 
 _MU = int(phase_to_t32(1, 8))
 
@@ -89,10 +94,8 @@ def _bootstrap_key(cloud_key, device, lanes):
     return bk.mac_rhs(device) if lanes else bk.device(device)
 
 
-def _linear_bootstrap(inputs, const, coeffs, bk_dev, ks_arrays, *, mu,
-                      tgsw_params, ks_meta, chunk_steps=1,
-                      coarse_phase_bits=0):
-    """temp = (0, const) + sum_i coeffs[i] * inputs[i]; bootstrap(temp)."""
+def _linear(inputs, const, coeffs):
+    """temp = (0, const) + sum_i coeffs[i] * inputs[i], as int32 (a, b)."""
     ta = torch.zeros_like(inputs[0][0], dtype=torch.int64)
     tb = torch.full(inputs[0][1].shape, int(const), dtype=torch.int64,
                     device=ta.device)
@@ -101,10 +104,7 @@ def _linear_bootstrap(inputs, const, coeffs, bk_dev, ks_arrays, *, mu,
         ta = ta + int(c) * ia.to(torch.int64)
         tb = tb + int(c) * ib.to(torch.int64)
         tcv = tcv + torch.tensor(float(c), dtype=torch.float32) ** 2 * icv
-    return dboot.bootstrap_device(
-        wrap_i32(ta), wrap_i32(tb), bk_dev, ks_arrays, ks_meta, mu,
-        tgsw_params, chunk_steps=chunk_steps,
-        coarse_phase_bits=coarse_phase_bits)
+    return wrap_i32(ta), wrap_i32(tb)
 
 
 def _store(result, shape, ra, rb, rcv):
@@ -117,21 +117,24 @@ def _store(result, shape, ra, rb, rcv):
 
 def _bootstrap_gate(cloud_key, result, sources, const, coeffs, device,
                     perf_params=None):
+    """temp = (0, const) + sum_i coeffs[i] * sources[i]; bootstrap(temp)."""
     params = cloud_key.params
     lwe_size = params.in_out_params.size
     shape = tuple(result.shape)
-    inputs = tuple(_broadcast_flat(src, shape, lwe_size, device)
-                   for src in sources)
+    with annotate("nufhe.gate.linear"):
+        inputs = tuple(_broadcast_flat(src, shape, lwe_size, device)
+                       for src in sources)
+        ta, tb = _linear(inputs, const, coeffs)
     ks_arrays, ks_meta = cloud_key.keyswitch_key.device(device)
     perf = _perf_kwargs(perf_params, device)
     bk_dev = _bootstrap_key(cloud_key, device, perf.pop("lanes"))
-    ra, rb, rcv = _linear_bootstrap(
-        inputs, const, coeffs, bk_dev, ks_arrays, mu=_MU,
-        tgsw_params=params.tgsw_params, ks_meta=ks_meta, **perf)
+    ra, rb, rcv = dboot.bootstrap_device(
+        ta, tb, bk_dev, ks_arrays, ks_meta, _MU, params.tgsw_params, **perf)
     return _store(result, shape, ra, rb, rcv)
 
 
 def _make_gate2(name, const_num, const_den, ca, cb, doc):
+    @spanned("nufhe.gate")
     def gate(cloud_key, result, a, b, device, perf_params=None):
         check_shape(result, a, b)
         return _bootstrap_gate(
@@ -176,6 +179,7 @@ def _linear_gate(result, source, coeff, device):
     return result
 
 
+@spanned("nufhe.gate")
 def gate_not(cloud_key, result, a, device, perf_params=None):
     """Homomorphic NOT (negation; not bootstrapped).
     Reference: nufhe/gates.py:292-317."""
@@ -183,6 +187,7 @@ def gate_not(cloud_key, result, a, device, perf_params=None):
     return _linear_gate(result, a, -1, device)
 
 
+@spanned("nufhe.gate")
 def gate_copy(cloud_key, result, a, device, perf_params=None):
     """Copy a ciphertext (not bootstrapped).
     Reference: nufhe/gates.py:320-344."""
@@ -190,6 +195,7 @@ def gate_copy(cloud_key, result, a, device, perf_params=None):
     return _linear_gate(result, a, 1, device)
 
 
+@spanned("nufhe.gate")
 def gate_constant(cloud_key, result, vals, device, perf_params=None):
     """Trivial (noiseless) encryption of plaintext bits.
     Reference: nufhe/gates.py:352-387."""
@@ -208,6 +214,7 @@ def _i64(x):
     return x.to(torch.int64)
 
 
+@spanned("nufhe.gate")
 def gate_mux(cloud_key, result, a, b, c, device, perf_params=None):
     """Bootstrapped MUX: b if a else c.  Two keyswitch-free bootstraps,
     u1 = BS((0,-1/8) + a + b) and u2 = BS((0,-1/8) - a + c), run as one
@@ -219,14 +226,17 @@ def gate_mux(cloud_key, result, a, b, c, device, perf_params=None):
     params = cloud_key.params
     lwe_size = params.in_out_params.size
     shape = tuple(result.shape)
-    (aa, ab, _), (ba, bb, _), (ca, cb, _) = (
-        _broadcast_flat(src, shape, lwe_size, device) for src in (a, b, c))
     and_const = int(phase_to_t32(-1, 8))
     mux_const = int(phase_to_t32(1, 8))
-    bsz = ab.shape[0]
-    lwe_a = wrap_i32(torch.cat([_i64(aa) + _i64(ba), _i64(ca) - _i64(aa)]))
-    lwe_b = wrap_i32(torch.cat([and_const + _i64(ab) + _i64(bb),
-                                and_const - _i64(ab) + _i64(cb)]))
+    with annotate("nufhe.gate.linear"):
+        (aa, ab, _), (ba, bb, _), (ca, cb, _) = (
+            _broadcast_flat(src, shape, lwe_size, device)
+            for src in (a, b, c))
+        bsz = ab.shape[0]
+        lwe_a = wrap_i32(torch.cat([_i64(aa) + _i64(ba),
+                                    _i64(ca) - _i64(aa)]))
+        lwe_b = wrap_i32(torch.cat([and_const + _i64(ab) + _i64(bb),
+                                    and_const - _i64(ab) + _i64(cb)]))
     ks_arrays, ks_meta = cloud_key.keyswitch_key.device(device)
     perf = _perf_kwargs(perf_params, device)
     bk_dev = _bootstrap_key(cloud_key, device, perf.pop("lanes"))

@@ -15,6 +15,10 @@ Tensor parallelism (the JAX package's ``axis_name``/``slot_axis_name``,
 a collective (``ops/lanes_step.lanes_step_sharded``): ``group`` splits the
 key's g-blocks over the process group (``mode='limbs'``), ``slot_group`` its
 slots (``mode='slots'``).  The keyswitch stays local.
+
+A bootstrap runs inside the span ``nufhe.bootstrap`` and, within it,
+``nufhe.bootstrap.switch``, ``nufhe.blind_rotate`` and ``nufhe.extract``
+(``utils/profiling.annotate``), each once and never a step.
 """
 
 import torch
@@ -26,6 +30,7 @@ from . import lanes_step as lanes
 from . import lwe as dlwe
 from . import tlwe as dtlwe
 from ..ref.bootstrap_ref import blind_rotate_variance
+from ..utils.profiling import annotate, spanned
 
 
 def t32_to_phase(phase, mspace_size: int):
@@ -55,6 +60,7 @@ def round_phase_coarse(bara, bits: int, n_poly: int):
     return (out & (2 * n_poly - 1)).to(torch.int32)
 
 
+@spanned("nufhe.blind_rotate")
 def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
                  exact=True, group=None, slot_group=None):
     """ACC <- BK_i (x) [(X^{bara_i}-1) ACC] + ACC over all n key bits.
@@ -133,6 +139,7 @@ def _blind_rotate_tp(accum_a, bk_shard, bara, tgsw_params, exact, group,
     return fe.n_from_q(acc_q.reshape(accum_a.shape))
 
 
+@spanned("nufhe.bootstrap")
 def bootstrap_device(lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, mu,
                      tgsw_params, no_keyswitch=False, chunk_steps=1,
                      coarse_phase_bits=0, group=None, slot_group=None):
@@ -150,28 +157,31 @@ def bootstrap_device(lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, mu,
     mask_size = tlwe_params.mask_size
     exact = tlwe_params.transform_type != 'FFT'
 
-    barb = t32_to_phase(lwe_b, 2 * n_poly)
-    bara = t32_to_phase(lwe_a, 2 * n_poly)
-    bara = round_phase_coarse(bara, coarse_phase_bits, n_poly)
+    with annotate("nufhe.bootstrap.switch"):
+        barb = t32_to_phase(lwe_b, 2 * n_poly)
+        bara = t32_to_phase(lwe_a, 2 * n_poly)
+        bara = round_phase_coarse(bara, coarse_phase_bits, n_poly)
 
-    # testvector = X^{2N - barb} * (mu, ..., mu): for a constant vector the
-    # shift is a sign pattern, +mu iff (k + barb) mod 2N < N
-    k = torch.arange(n_poly, device=lwe_b.device)
-    pos = (k + barb[..., None].to(torch.int64)) & (2 * n_poly - 1)
-    mu_t = torch.tensor(int(mu), dtype=torch.int32, device=lwe_b.device)
-    testvect = torch.where(pos < n_poly, mu_t, -mu_t)
+        # testvector = X^{2N - barb} * (mu, ..., mu): for a constant vector
+        # the shift is a sign pattern, +mu iff (k + barb) mod 2N < N
+        k = torch.arange(n_poly, device=lwe_b.device)
+        pos = (k + barb[..., None].to(torch.int64)) & (2 * n_poly - 1)
+        mu_t = torch.tensor(int(mu), dtype=torch.int32, device=lwe_b.device)
+        testvect = torch.where(pos < n_poly, mu_t, -mu_t)
 
-    accum, _ = dtlwe.tlwe_noiseless_trivial(testvect, mask_size)
+        accum, _ = dtlwe.tlwe_noiseless_trivial(testvect, mask_size)
     accum = blind_rotate(accum, bk_dev, bara, tgsw_params,
                          chunk_steps=chunk_steps, exact=exact, group=group,
                          slot_group=slot_group)
-    ex_a, ex_b = dtlwe.tlwe_extract_lwe_samples(accum)
+    with annotate("nufhe.extract"):
+        ex_a, ex_b = dtlwe.tlwe_extract_lwe_samples(accum)
 
-    # fresh-noise estimate through the blind rotation (CGGI16 bound)
-    var_br = blind_rotate_variance(tgsw_params, lwe_a.shape[-1], exact=exact,
-                                   coarse_phase_bits=coarse_phase_bits)
-    ex_cv = torch.full(ex_b.shape, var_br, dtype=torch.float32,
-                       device=ex_b.device)
+        # fresh-noise estimate through the blind rotation (CGGI16 bound)
+        var_br = blind_rotate_variance(tgsw_params, lwe_a.shape[-1],
+                                       exact=exact,
+                                       coarse_phase_bits=coarse_phase_bits)
+        ex_cv = torch.full(ex_b.shape, var_br, dtype=torch.float32,
+                           device=ex_b.device)
     if no_keyswitch:
         return ex_a, ex_b, ex_cv
     return dlwe.lwe_keyswitch(ks_arrays, ks_meta, ex_a, ex_b, source_cv=ex_cv)

@@ -1,7 +1,8 @@
 """LWE operations in PyTorch (``nufhe_tpu/ops/lwe.py``'s counterpart).
 
 The elementwise ops are plain tensor code; the keyswitch runs kernel K2
-(``ops/keyswitch.py``) on a CUDA tensor.
+(``ops/keyswitch.py``) on a CUDA tensor, inside the span ``nufhe.keyswitch``
+(``utils/profiling.annotate``).
 """
 
 from typing import NamedTuple
@@ -11,6 +12,7 @@ import torch
 
 from ..numeric import wrap_i32
 from ..utils import to_device
+from ..utils.profiling import spanned
 from . import keyswitch as ks
 
 
@@ -178,6 +180,7 @@ def prepare_keyswitch_device(ks_a, ks_b, ks_cv, log2_base: int, device):
     return arrays, meta
 
 
+@spanned("nufhe.keyswitch")
 def lwe_keyswitch(ks_arrays, ks_meta: KeyswitchMeta, source_a, source_b,
                   source_cv=None):
     """result = (0, b) - sum_{l,j} KS[l, j, digit_{l,j}].

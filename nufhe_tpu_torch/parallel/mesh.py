@@ -16,7 +16,9 @@ process groups:
   CMUX step (``ops/lanes_step.lanes_step_sharded``).
 
 Where JAX passes a mesh axis name, the port passes the process group
-``mesh.get_group('model')``.
+``mesh.get_group('model')``.  :func:`gather_ciphertext` and :func:`replicate`
+run inside the spans ``nufhe.mesh.gather`` and ``nufhe.mesh.replicate``
+(``utils/profiling.annotate``).
 """
 
 import numpy as np
@@ -28,6 +30,7 @@ from ..ops import bootstrap as dboot
 from ..ops import flat_engine as fe
 from ..ops import transform as tf
 from ..ops.lanes_step import MODES
+from ..utils.profiling import spanned
 
 
 def _check_mode(mode):
@@ -111,6 +114,7 @@ def _gather_batch(x, group):
     return fe.gather_slots(x, group).reshape((-1,) + tuple(x.shape[1:]))
 
 
+@spanned("nufhe.mesh.gather")
 def gather_ciphertext(ct, mesh):
     """The whole batch of a data-sharded ciphertext, on every rank (an
     ``all_gather`` over ``'data'``).  Not in the JAX package, whose sharded
@@ -129,6 +133,7 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+@spanned("nufhe.mesh.replicate")
 def replicate(tree, mesh):
     """Key material on every rank: each tensor (or numpy array) of ``tree``
     (dicts, lists and tuples of them) broadcast from the mesh's first rank

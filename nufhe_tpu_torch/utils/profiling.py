@@ -2,11 +2,14 @@
 
 Any region can be captured to a trace that Chrome's ``about:tracing``,
 Perfetto or TensorBoard reads, with one context manager or by setting
-``NUFHE_PROFILE_DIR``; ``annotate`` names a span inside it, and on CUDA
-also an NVTX range.  ``time_ms`` times a call on the card by CUDA events.
+``NUFHE_PROFILE_DIR``; ``annotate`` names a span inside it.  The port's
+layers open their spans with ``annotate`` (``nufhe.vm.<op>``, ``nufhe.gate``,
+``nufhe.bootstrap`` and the others of the README's profiling paragraph).
+``time_ms`` times a call on the card by CUDA events.
 """
 
 import contextlib
+import functools
 import os
 import time
 
@@ -38,23 +41,33 @@ def profile_trace(logdir=None):
         yield
 
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name):
-    """A named span inside a profiled trace (``torch.profiler.
-    record_function``), and on CUDA an NVTX range of the same name.
+    """A named span inside a profiled trace: ``torch.profiler.
+    record_function`` while a profiler records, on the same clock as the
+    card's kernels; under ``torch.autograd.profiler.emit_nvtx()`` that is
+    also an NVTX range.  With no profiler recording it costs one check, so
+    the port's layers call it on every gate.
 
     >>> with annotate("blind_rotate"):
     ...     ...
     """
-    with torch.profiler.record_function(name):
-        if not torch.cuda.is_available():
-            yield
-            return
-        torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            torch.cuda.nvtx.range_pop()
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def spanned(name):
+    """Decorator: every call of the function runs inside ``annotate(name)``."""
+    def decorate(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwds):
+            with annotate(name):
+                return fn(*args, **kwds)
+        return call
+    return decorate
 
 
 def time_ms(fn, reps, device="cuda", warmup=0):
