@@ -23,7 +23,12 @@ and prints no result line):
    K1 launches on the same coefficient key; then K1, K3 and K4 at the
    non-default (mask1, l) = (3, 2) and (2, 3), both key forms, at batch 64
    and 101, each against its plain version, K3 against its chunk of K1
-   launches and K4's steps against as many K1 launches; K5 (the exact
+   launches and K4's steps against as many K1 launches; K3 and K1 (one MAC
+   form, both digit limbs on the mma's N) in all three shapes and both key
+   forms at batches 1, 3, 4, 5, 64, 128, 2^14 and 2^14 + 4, K3 at chunks
+   1, 7 and 50 (1 and 7 at the two large batches), against their plain
+   versions, with the MAC's ``mma.sync`` a slot and the share of their N
+   columns that carry work (``mac_issue``); K5 (the exact
    step's stage parts, ``ops/step_parts``): every part against its plain
    version at batch 256 and 101, its FULL step also against K1; at the
    same batches K6 (``ops/step_context``, K3 with one stage of each step
@@ -137,7 +142,9 @@ and prints no result line):
    default path, the per-step path and the lanes path, and of MUX; each
    kernel's ms per launch beside its plain version (whose output it
    equals there too), a PyTorch library call where one computes the same
-   function, and its bound; K4's three grids timed apart;
+   function, and its bound (K3's with its MAC's ``mma.sync`` a slot and
+   the share of their N columns that carry work); K4's three grids timed
+   apart;
 11. ``step_parts``: ``tools/microbench_torch.py parts`` at 2^14 with the
    launch counts set to 0 just before it and read just after (K5's
    launches in the ``kernels`` line), then every part on the same inputs
@@ -207,9 +214,11 @@ counted apart (``lanes_step.collectives``).
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import time
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -239,6 +248,14 @@ EXAMPLES = ("gate_nand_torch.py", "gate_nand_low_level_torch.py",
             "transform_modes_torch.py")
 # the kernels' non-default (mask1, l): tlwe_mask_size=2, bs_decomp_length=3
 VARIANT_SHAPES = ((3, 2), (2, 3))
+# K3's and K1's batches against their plain versions in every shape and key
+# form: one sample, ragged and whole blocks of 4 and 2 samples, small
+# calls, the gate's 2^14 and 2^14 + 4 (a ragged last block of 4 samples)
+K3_BATCHES = (1, 3, 4, 5, 64, 128, 1 << 14, (1 << 14) + 4)
+K3_CHUNKS = (1, 7, 50)
+# the chunks at the two large batches (50 steps of the plain version there
+# take tens of seconds; the timing phase holds 2^14 x 50 at (2, 2))
+K3_LARGE_CHUNKS = (1, 7)
 # the gates at the JAX package's one-knob variant parameters run at this
 # LWE size, which the default chunk of 50 divides (so the default path runs
 # K3), to keep the run short
@@ -408,6 +425,88 @@ def check_kernels(nft, dev, rng, results):
     check_k4(dev, rng, results, tp, kw)
     for mask1, decomp_length in VARIANT_SHAPES:
         check_variant_shape(nft, dev, rng, results, mask1, decomp_length)
+    check_k3_batches(nft, dev, rng, results)
+
+
+def block_samples(mask1, decomp_length):
+    """kS, the samples a block of K1 and K3 holds, read from the one place
+    the port sets it (``Shape::kS`` in ``blind_rotate_body.cuh``)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "nufhe_tpu_torch", "kernels", "csrc",
+                        "blind_rotate_body.cuh")
+    with open(path) as f:
+        m = re.search(r"int kS = \(M == (\d+) && D == (\d+)\) \? (\d+) : (\d+);",
+                      f.read())
+    if m is None:
+        raise RuntimeError("no Shape::kS of the form (M == a && D == b) ? x "
+                           ": y in " + path)
+    a, b, x, y = map(int, m.groups())
+    return x if (mask1, decomp_length) == (a, b) else y
+
+
+def mac_issue(mask1, decomp_length, rounded):
+    """How K1's and K3's MAC (``mac_slot``) issues on the tensor cores: the
+    ``mma.sync`` m16n8k32 of one slot and the share of their N columns that
+    carry work.  Both int8 limbs of the block's kS digit samples lie on the
+    mma's N (2kS of its 8 columns), and each key limb row (6 exact: vlo,
+    vhi_0..3, 4*vlo; 4 rounded) feeds one mma a digit polynomial, output
+    polynomial and M tile; a row's product with a digit limb carries work
+    where ``ops/transform._mac_limb_table`` pairs them.
+
+    :returns: (``mma.sync`` a slot, :class:`fractions.Fraction` of the
+        columns that carry work).
+    """
+    from nufhe_tpu_torch.ops import transform as tf
+    if (mask1, decomp_length) not in tf.KERNEL_SHAPES:
+        raise ValueError("K3 takes (mask1, l) in %s, not (%d, %d)"
+                         % (tf.KERNEL_SHAPES, mask1, decomp_length))
+    key_limbs = tf.KEY_LIMBS_APPROX if rounded else tf.KEY_LIMBS
+    rows = key_limbs if rounded else key_limbs + 1       # exact: and 4*vlo
+    # the table's pairs that meet a key limb, not its zero (index key_limbs)
+    pairs = int((tf._mac_limb_table(not rounded) != key_limbs).sum())
+    mma = 2 * mask1 * (mask1 * decomp_length) * rows
+    return mma, Fraction(pairs * block_samples(mask1, decomp_length),
+                         rows * 8)
+
+
+def check_k3_batches(nft, dev, rng, results):
+    """K3 and K1, whose MAC has one form (both digit limbs on the mma's N,
+    :func:`mac_issue`), against their plain versions in every
+    kernel shape and both key forms: K1 at each of ``K3_BATCHES``, K3 at
+    each of those batches and chunks (``K3_LARGE_CHUNKS`` above 128), from
+    step 1 of a random key."""
+    from nufhe_tpu_torch.ops import blind_rotate as brc, cmux
+    steps, start = max(K3_CHUNKS) + 1, 1
+    for mask1, decomp_length in ((2, 2),) + VARIANT_SHAPES:
+        tp = nft.NuFHEParameters(tlwe_mask_size=mask1 - 1,
+                                 bs_decomp_length=decomp_length).tgsw_params
+        kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
+        shape = "(mask1, l) = (%d, %d)" % (mask1, decomp_length)
+        for mode in ("NTT", "FFT"):
+            key = random_key(rng, steps, tp, dev, mode, mask1)
+            for batch in K3_BATCHES:
+                acc = random_acc(rng, batch, dev, mask1)
+                bara_t = random_powers(rng, (steps, batch), dev)
+                got = cmux.cmux_step(acc, bara_t[start], key[start], **kw)
+                want = cmux.cmux_step_plain(acc, bara_t[start], key[start],
+                                            **kw)
+                torch.cuda.synchronize()
+                record_err(results, "cmux_step", "K1 %s %s vs plain, batch %d"
+                           % (shape, mode, batch), max_abs_err(got, want))
+                for chunk in K3_CHUNKS if batch <= 128 else K3_LARGE_CHUNKS:
+                    got = brc.blind_rotate_chunk(acc, bara_t, key, start,
+                                                 chunk, **kw)
+                    want = brc.blind_rotate_chunk_plain(acc, bara_t, key,
+                                                        start, chunk, **kw)
+                    torch.cuda.synchronize()
+                    record_err(results, "blind_rotate_chunk", "K3 %s %s vs "
+                               "plain, batch %d, chunk %d"
+                               % (shape, mode, batch, chunk),
+                               max_abs_err(got, want))
+                del acc, bara_t, got, want
+            mma, share = mac_issue(mask1, decomp_length, mode == "FFT")
+            print("K1/K3 %s %s MAC: %d mma.sync a slot, %s of their N "
+                  "columns carry work" % (shape, mode, mma, share))
 
 
 def check_variant_shape(nft, dev, rng, results, mask1, decomp_length):
@@ -1142,12 +1241,14 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
         bound, by = bound_ms(n_bytes, mac_ops(b, mode) * CHUNK,
                              INT8_OPS_PER_S)
         old_bound, old_by = bound_ms(n_bytes, CHUNK * cmux_ops(b))
+        mma, share = mac_issue(2, 2, mode == "FFT")
         print("K3 %s batch %d chunk %d: %.4f ms/launch (%d x K1 = %.4f ms, "
               "ratio %.4f), plain %.2f ms, bound %.4f ms (%s; int8 MAC), "
-              "bound by the int64 count of the first design %.4f ms (%s)"
+              "bound by the int64 count of the first design %.4f ms (%s); "
+              "MAC %d mma.sync a slot, %s of their N columns carry work"
               % (mode, b, CHUNK, k3_ms, CHUNK, CHUNK * k1_ms[mode],
                  k3_ms / (CHUNK * k1_ms[mode]), plain, bound, by, old_bound,
-                 old_by))
+                 old_by, mma, share))
         if mode == "NTT":
             results["blind_rotate_chunk"].update(
                 ms=k3_ms, plain_ms=plain, bound_ms=bound, bound_by=by,

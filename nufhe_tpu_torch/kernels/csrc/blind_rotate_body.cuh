@@ -48,10 +48,11 @@
 //      per slot, [g][limb][sample][32];
 //   4. the MAC: per slot, the (Q x 64G) . (64G x kS) product, Q = 5*32*Mask1
 //      exact (groups B, A0..A3) or 4*32*Mask1 rounded (A0..A3), by mma.sync
-//      m16n8k32 s8 x s8 -> s32, the samples on the mma's N (kS of its 8
-//      columns); a warp owns a slot.  The A operand is the key, built on
-//      chip: the warp loads the slot's int64 residues (G*Mask1*32 exact,
-//      twice that rounded) from device memory, splits each into the
+//      m16n8k32 s8 x s8 -> s32 with both int8 limbs of the kS samples'
+//      digits on the mma's N (2kS of its 8 columns: all of them at (2, 2),
+//      half at kS = 2); a warp owns a slot.  The A operand is the key,
+//      built on chip: the warp loads the slot's int64 residues (G*Mask1*32
+//      exact, twice that rounded) from device memory, splits each into the
 //      two-sided int8 limbs of ops/transform.key_limbs_host (side 0 from +v,
 //      side 1 from -v mod 2^38 exact; each stored side rounded,
 //      64*round(./64), in the rounded form), and writes per (g, o, limb) one
@@ -64,10 +65,16 @@
 //      32-bit arithmetic on any representative mod 2^38 (no centring), the 4
 //      balanced radix-2^8 digits of a word at once.  A limb row meets the
 //      digits' limb 0 in its own group and limb 1 in the next (the table of
-//      ops/transform._mac_limb_table), so 6 row fragments feed 9 mma (4 and
-//      7 rounded).  The groups of an output lie in one thread, so they are
-//      recombined in registers (lo = A0 + A1<<8 + A2<<16 + A3<<24 in uint32,
-//      hi = B); lo goes to the lo channel, hi over the slot's consumed limbs;
+//      ops/transform._mac_limb_table, mac_group), so with both digit limbs
+//      on N each of the 6 row fragments (4 rounded) feeds one mma a tile
+//      into an accumulator of its own: 6 mma a (g, o, tile), 9 of whose 12
+//      (row, limb) column halves carry work (4 and 7 of 8 rounded; with
+//      one digit limb on N it took 9 and 7).  Both limbs of a
+//      sample lie in one thread (column 2n + i is limb i of sample n), so
+//      the rows are recombined in registers, each (row, limb) shifted by
+//      its group (lo = A0 + A1<<8 + A2<<16 + A3<<24 in uint32, hi = B =
+//      row 0 x limb 0 alone); lo goes to the lo channel, hi over the slot's
+//      consumed limbs;
 //   5-6. a warp a channel polynomial: the unscaled inverse DIT in uint32
 //      registers, the fold, and c = lo + (hi >> 6) (or lo) added to the
 //      accumulator.  Wraparound is the lo channel's mod 2^32.  The hi
@@ -90,7 +97,10 @@
 //   (2, 3): 48 KB a sample, kS = 2, 12 warps x 4.5 KB: 150 KB exact (kS = 3
 //           would fit in 225 KB, but with 18 warps and at most 112 registers
 //           a thread, below the 128 the (2, 2) kernel takes).
-// One block an SM.
+// One block an SM.  Registers (ptxas, sm_90a): 128 a thread at (2, 2), the
+// ceiling of a 512-thread block, and 168 at the other shapes, none spilled
+// in either form; the MAC holds 8 accumulators a key limb row (48 exact,
+// 32 rounded) and 2G B-fragment registers.
 //
 // Bound: the MAC is 64 * 64G * Q int8 multiply-adds a sample and step
 // (5.24 M exact at (2, 2), 4.19 M rounded); at batch 2^14 and chunk 50,
@@ -98,7 +108,12 @@
 // 1979e12/s (3.47 ms rounded).  Bytes: the accumulator in and out, the
 // rotation amounts and the chunk's key rows (131 KB exact each at (2, 2)).
 // L2 traffic: one key row a block and step, 2^14 / 4 x 131 KB = 0.54 GB a
-// step exact.
+// step exact.  Issued: 2 * Mask1 * G * 6 mma.sync a slot (4 rows rounded),
+// 96 exact and 64 rounded at (2, 2), 9216 and 6144 a block and step (one
+// digit limb on N: 144 and 112); an mma takes its time whatever share of
+// its columns carries work (chip_smoke.py's mac_issue counts both).  Every
+// instantiation runs this one MAC form, the split halves (K8) and the
+// sample pipelines (K10) included.
 
 #pragma once
 
@@ -161,22 +176,35 @@ __device__ __forceinline__ void key_rows(int p,
   }
 }
 
+// The output group in which key limb row L meets digit limb i (the table
+// of ops/transform._mac_limb_table: exact, B then A0..A3, row 5 = 4*vlo;
+// rounded, A0..A3), -1 where the pair is not used
+__host__ __device__ constexpr int mac_group(bool rounded, int L, int i) {
+  return rounded ? (i == 0 ? L : (L + 1 < 4 ? L + 1 : -1))
+                 : i == 0 ? (L < 5 ? L : -1)
+                 : L == 5 ? 1 : (L >= 1 && L <= 3 ? L + 1 : -1);
+}
+
 // The MAC of one slot p (frequency rev6(p)) for the block's samples; the
-// calling warp owns the slot.  kHalf < 0: over every digit polynomial (K1,
-// K3), the channels written.  K8's split schedule (exact form) runs it
-// twice, over the digit polynomials g of half kHalf = 0 then 1
-// (kHalf * G/2 <= g < (kHalf + 1) * G/2): half 0 writes the lo channel and
-// the hi channel of (sample, o) pairs s*M + o < kS*M/2 over its consumed
-// limbs, the other pairs to hi_x (the second half of the slot's limbs is
-// still being written); half 1 adds into both and leaves the hi channel
-// where K1 leaves it.  build_rows false: the warp's key rows are already
-// in arow (K6's key-split stand-in).  kQ > 1 (K10's pipelines): the limbs
-// lie sample-major ([sample][g][limb][32 bytes], so that a sample's hi
-// channel lies over its own limbs) and the MAC is that of sub-batch q, the
-// samples [q*kS/kQ, (q+1)*kS/kQ), the other columns zero and not stored.
-// kPartial (K10's v2): the groups are left partly combined, A0 + A1<<8 +
-// A2<<16 in the lo channel and A3<<24 + B (exact; A3 rounded) in the hi
-// channel's place, for combine_pass.
+// calling warp owns the slot.  The mma's N holds both digit limbs of the
+// block's samples (column n is limb n & 1 of sample n >> 1, zero past
+// 2kS), one accumulator a key limb row, so each row fragment feeds one mma;
+// the thread of sample tig adds its own (row, limb) columns, each shifted
+// by its group (mac_group).  kHalf < 0: over every digit
+// polynomial (K1, K3), the channels written.  K8's split schedule (exact
+// form) runs it twice, over the digit polynomials g of half kHalf = 0 then
+// 1 (kHalf * G/2 <= g < (kHalf + 1) * G/2): half 0 writes the lo channel
+// and the hi channel of (sample, o) pairs s*M + o < kS*M/2 over its
+// consumed limbs, the other pairs to hi_x (the second half of the slot's
+// limbs is still being written); half 1 adds into both and leaves the hi
+// channel where K1 leaves it.  build_rows false: the warp's key rows are
+// already in arow (K6's key-split stand-in).  kQ > 1 (K10's pipelines): the
+// limbs lie sample-major ([sample][g][limb][32 bytes], so that a sample's
+// hi channel lies over its own limbs) and the MAC is that of sub-batch q,
+// the samples [q*kS/kQ, (q+1)*kS/kQ), the other columns zero and not
+// stored.  kPartial (K10's v2): the groups are left partly combined, A0 +
+// A1<<8 + A2<<16 in the lo channel and A3<<24 + B (exact; A3 rounded) in
+// the hi channel's place, for combine_pass.
 template <int M, int D, bool kRounded, int kHalf = -1, int kQ = 1,
           bool kPartial = false>
 __device__ __forceinline__ void mac_slot(
@@ -189,33 +217,28 @@ __device__ __forceinline__ void mac_slot(
   constexpr int kS = S::kS;
   constexpr int kRows = kRounded ? 4 : 6;    // limb rows a (g, o)
   constexpr int kHalfPairs = kS * M / 2;
+  constexpr int kSub = kS / kQ;
   const int lane = threadIdx.x & 31;
   const int gid = lane >> 2;
   const int tig = lane & 3;
+  const int n0 = q * kSub;
 
   if (build_rows) key_rows<M, D, kRounded, kG0, kGn>(p, key_row, arow);
 
-  // B fragments: sample gid's limbs i of digit polynomial g, bytes
-  // 4tig..4tig+3 and 16+4tig..+3 (samples past kS are zero columns)
+  // B fragments: column gid, limb gid & 1 of sample gid >> 1 of digit
+  // polynomial kG0 + g, bytes 4tig..4tig+3 and 16+4tig..+3
   const uint32_t* reg = limbs + p * S::kRegionWords;
-  constexpr int kSub = kS / kQ;
-  const int n0 = q * kSub;
-  uint32_t bf[kGn][2][2];
+  const int bn = gid >> 1, bi = gid & 1;
+  const bool mine = bn >= n0 && bn < n0 + kSub;    // kQ = 1: bn < kS
+  uint32_t bf[kGn][2];
 #pragma unroll
-  for (int g = 0; g < kGn; ++g)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if constexpr (kQ == 1) {
-        const uint32_t* w = reg + (((kG0 + g) * 2 + i) * kS + gid) * 8;
-        bf[g][i][0] = gid < kS ? w[tig] : 0u;
-        bf[g][i][1] = gid < kS ? w[tig + 4] : 0u;
-      } else {
-        const uint32_t* w = reg + ((gid * S::kG + kG0 + g) * 2 + i) * 8;
-        const bool mine = gid >= n0 && gid < n0 + kSub;
-        bf[g][i][0] = mine ? w[tig] : 0u;
-        bf[g][i][1] = mine ? w[tig + 4] : 0u;
-      }
-    }
+  for (int g = 0; g < kGn; ++g) {
+    const uint32_t* wb =
+        kQ == 1 ? reg + (((kG0 + g) * 2 + bi) * kS + bn) * 8
+                : reg + ((bn * S::kG + kG0 + g) * 2 + bi) * 8;
+    bf[g][0] = mine ? wb[tig] : 0u;
+    bf[g][1] = mine ? wb[tig + 4] : 0u;
+  }
   __syncwarp();   // the rows are written; the limbs are read (hi goes there)
 
   // M tiles: the odd outputs k (tile 0: row gid is k = 4gid + 3, row
@@ -224,15 +247,17 @@ __device__ __forceinline__ void mac_slot(
   // w, w+1, w+4, w+5 (w = 7 - gid + tig), at byte shifts 0/2 (tile 0) and
   // 1/3 (tile 1): entry (k, u) is byte 31 - k + u, and u = 4tig (+16).
   const int w = 7 - gid + tig;
+  const int n = tig;                              // this thread's sample
+  const bool store = n < kS && n >= n0 && n < n0 + kSub;
 #pragma unroll 1
   for (int o = 0; o < M; ++o) {
-    int d[2][5][4];
+    int d[2][kRows][4];
 #pragma unroll
     for (int tile = 0; tile < 2; ++tile)
 #pragma unroll
-      for (int s = 0; s < 5; ++s)
+      for (int L = 0; L < kRows; ++L)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) d[tile][s][e] = 0;
+        for (int e = 0; e < 4; ++e) d[tile][L][e] = 0;
 #pragma unroll
     for (int g = 0; g < kGn; ++g) {
 #pragma unroll
@@ -240,55 +265,39 @@ __device__ __forceinline__ void mac_slot(
         const uint32_t* row =
             arow + ((g * M + o) * kRows + L) * kRowWords + w;
         const uint32_t w0 = row[0], w1 = row[1], w4 = row[4], w5 = row[5];
-        const uint32_t f[2][4] = {
-            {w0, __funnelshift_r(w0, w1, 16), w4, __funnelshift_r(w4, w5, 16)},
-            {__funnelshift_r(w0, w1, 8), __funnelshift_r(w0, w1, 24),
-             __funnelshift_r(w4, w5, 8), __funnelshift_r(w4, w5, 24)}};
-        // (group, digit limb) pairs that read limb row L
-        // (ops/transform._mac_limb_table)
-        int s0, s1;
-        if (kRounded) {
-          s0 = L;
-          s1 = L + 1 < 4 ? L + 1 : -1;
-        } else {
-          s0 = L < 5 ? L : -1;
-          s1 = L == 5 ? 1 : (L >= 1 && L <= 3 ? L + 1 : -1);
-        }
-#pragma unroll
-        for (int tile = 0; tile < 2; ++tile) {
-          const uint32_t(&a)[4] = f[tile];
-          if (s0 >= 0)
-            mma_s8(d[tile][s0], a[0], a[1], a[2], a[3], bf[g][0][0],
-                   bf[g][0][1]);
-          if (s1 >= 0)
-            mma_s8(d[tile][s1], a[0], a[1], a[2], a[3], bf[g][1][0],
-                   bf[g][1][1]);
-        }
+        mma_s8(d[0][L], w0, __funnelshift_r(w0, w1, 16), w4,
+               __funnelshift_r(w4, w5, 16), bf[g][0], bf[g][1]);
+        mma_s8(d[1][L], __funnelshift_r(w0, w1, 8),
+               __funnelshift_r(w0, w1, 24), __funnelshift_r(w4, w5, 8),
+               __funnelshift_r(w4, w5, 24), bf[g][0], bf[g][1]);
       }
     }
-    // recombine the groups; lo to the lo channel, hi over the slot's limbs
+    if (!store) continue;
+    // sample n's columns: limb i of row gid in d[.][.][i], of row gid + 8
+    // in d[.][.][2 + i], each (row, limb) shifted by its group (mac_group):
+    // lo = A0 + A1<<8 + A2<<16 + A3<<24 in uint32 to the lo channel, hi =
+    // B (row 0 x limb 0) over the slot's consumed limbs
 #pragma unroll
     for (int tile = 0; tile < 2; ++tile)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int k = 4 * gid + (e < 2 ? 3 : 1) - tile;
-        const int n = 2 * tig + (e & 1);
-        if (n >= kS) continue;
-        if constexpr (kQ > 1) {
-          if (n < n0 || n >= n0 + kSub) continue;
-        }
-        const int a = kRounded ? 0 : 1;
-        const uint32_t lo = (uint32_t)d[tile][a][e] +
-                            ((uint32_t)d[tile][a + 1][e] << 8) +
-                            ((uint32_t)d[tile][a + 2][e] << 16) +
-                            ((uint32_t)d[tile][a + 3][e] << 24);
+      for (int r = 0; r < 2; ++r) {
+        const int k = 4 * gid + (r == 0 ? 3 : 1) - tile;
+        constexpr int a = kRounded ? 0 : 1;
+        uint32_t lo = 0, a3 = 0;          // a3: group A3 apart (kPartial)
+#pragma unroll
+        for (int L = 0; L < kRows; ++L)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int s = mac_group(kRounded, L, i);
+            const uint32_t v = (uint32_t)d[tile][L][2 * r + i];
+            if (kPartial && s == a + 3) a3 += v;
+            else if (s >= a) lo += v << (8 * (s - a));
+          }
+        const uint32_t hi = (uint32_t)d[tile][0][2 * r];
         uint32_t* wl = work + n * S::kWorkWords + (o * kL + p) * kR + k;
         uint32_t* hl = limbs + p * S::kRegionWords + (n * M + o) * kR + k;
-        const uint32_t hi = (uint32_t)d[tile][0][e];
         if constexpr (kHalf < 0 && kPartial) {
-          const uint32_t a3 = (uint32_t)d[tile][a + 3][e];
-          *wl = (uint32_t)d[tile][a][e] + ((uint32_t)d[tile][a + 1][e] << 8) +
-                ((uint32_t)d[tile][a + 2][e] << 16);
+          *wl = lo;
           *hl = kRounded ? a3 : (a3 << 24) + hi;
         } else if constexpr (kHalf < 0) {
           *wl = lo;
@@ -1100,7 +1109,9 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
     } else if constexpr (O::kFromAcc && (pipe_parts(kVariant) == 1 ||
                                          kVariant == kPipe2Dots)) {
       const bool role = kChanRoles == kWarps || warp < kChanRoles;
-      const bool hi_warp = warp >= kS * M;
+      // the rounded form has no hi channel: its loads' stride is a
+      // constant, so no address of them is held across the steps
+      const bool hi_warp = !kRounded && warp >= kS * M;
       const int so = warp % (kS * M);            // s * M + o
       uint32_t* src = hi_warp ? limbs + so * kR : work + so * kL * kR;
       const int stride = hi_warp ? S::kRegionWords : kR;

@@ -30,8 +30,8 @@
 //
 // The pipelines split the samples, not the digit polynomials (K8's split
 // of the digit halves was 23% slower than K1): a sub-batch's MAC fills
-// kS/kQ of the mma's 8 sample columns and builds every slot's key rows
-// again, which is what their reading prices.
+// 2kS/kQ of the mma's 8 columns (both digit limbs of its samples) and
+// builds every slot's key rows again, which is what their reading prices.
 //
 // Layout: K1's (acc (B, 2, 1024) int32, p (B,) int32, key_row (4, 2, 64, 32)
 // int64 exact or (2, 4, 2, 64, 32) rounded, out (B, 2, 1024) int32).

@@ -4,6 +4,8 @@ their oracles, against the JAX package: the Pallas kernels in interpret
 mode and the numpy oracles.  Bit-exact throughout; on the CPU the launch
 counters do not move."""
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -16,8 +18,10 @@ from nufhe_tpu.ops import rows_engine as re_
 from nufhe_tpu.ops import tgsw as dtgsw
 from nufhe_tpu.ops.pallas import blind_rotate as pbr
 
+from nufhe_tpu_torch.numeric import wrap_i32
 from nufhe_tpu_torch.ops import blind_rotate as brc
 from nufhe_tpu_torch.ops import bootstrap as tboot, cmux, transform as ttf
+from nufhe_tpu_torch.ops import flat_engine as tfe
 from nufhe_tpu_torch.params import NuFHEParameters as TParams
 from nufhe_tpu_torch.ref import bootstrap_ref as t_bootstrap_ref
 from nufhe_tpu_torch.ref import tgsw_ref as t_tgsw_ref
@@ -199,18 +203,27 @@ def test_wrappers_reject_bad_input():
         == acc.shape
 
 
-def _k3_operand(key_row):
-    """K3's on-chip key operand rule, written as the kernel writes it: the
-    int64 key row (G, O, L, R) (or (2, G, O, L, R) rounded), any
-    representative mod 2^38, -> two-sided limbs (exact: vlo = balanced
-    x mod 64, then the 4 balanced radix-2^8 digits of (x - vlo) / 64 mod
-    2^32 as the bytes of (y + 0x80808080) ^ 0x80808080; side 1 from -x;
-    rounded: the digits of (x + 32) >> 6 of each stored side) -> per (g, o,
-    slot, limb) a reversed 64-byte row, byte 31 - r the limb of side 0 at
-    rotation r and byte 63 - r that of side 1 -> the (L, 256, Q) operand
-    whose entry (c = g*64 + i*32 + u, q = s*64 + o*32 + k) is byte
-    31 - k + u of the row that digit limb i meets in group s.  Natural slot
-    order (slot t is frequency t)."""
+def _k3_group(rounded, row, limb):
+    """The output group in which K3's key limb row ``row`` meets digit limb
+    ``limb``, -1 where none: ``ops/transform._mac_limb_table`` read by key
+    limb, K3's rows being the key limbs in order (exact: vlo, vhi_0..3,
+    then 4*vlo, the table's index KEY_LIMBS + 1; rounded: vhi_0..3)."""
+    key_limbs = ttf.KEY_LIMBS_APPROX if rounded else ttf.KEY_LIMBS
+    meets = ttf._mac_limb_table(not rounded)[limb].tolist()
+    index = key_limbs + 1 if row == key_limbs else row
+    return meets.index(index) if index in meets else -1
+
+
+def _k3_rows(key_row):
+    """K3's on-chip key rows, written as the kernel writes them: the int64
+    key row (G, O, L, R) (or (2, G, O, L, R) rounded), any representative
+    mod 2^38, -> two-sided limbs (exact: vlo = balanced x mod 64, then the
+    4 balanced radix-2^8 digits of (x - vlo) / 64 mod 2^32 as the bytes of
+    (y + 0x80808080) ^ 0x80808080, then 4*vlo; side 1 from -x; rounded: the
+    digits of (x + 32) >> 6 of each stored side) -> per (g, o, slot, limb
+    row) a reversed 64-byte row, byte 31 - r the limb of side 0 at rotation
+    r and byte 63 - r that of side 1: (G, O, L, rows, 64) int64 and whether
+    the key is rounded.  Natural slot order (slot t is frequency t)."""
     def radix256(y):
         word = (((y & 0xFFFFFFFF) + 0x80808080) & 0xFFFFFFFF) ^ 0x80808080
         digits = [(word >> (8 * q)) & 255 for q in range(4)]
@@ -224,27 +237,41 @@ def _k3_operand(key_row):
     if rounded:
         s0 = radix256((key_row[0] + 32) >> 6)
         s1 = radix256((key_row[1] + 32) >> 6)
-        meets = {(0, s): s for s in range(4)}
-        meets.update({(1, s): s - 1 for s in range(1, 4)})
     else:
         s0, s1 = split_exact(key_row), split_exact(-key_row)
-        meets = {(0, s): s for s in range(5)}
-        meets.update({(1, 1): 5, (1, 2): 1, (1, 3): 2, (1, 4): 3})
     g_sz, o_sz, l_sz, r_sz = s0[0].shape
     rows = torch.zeros((g_sz, o_sz, l_sz, len(s0), 64), dtype=torch.int64)
     lane = torch.arange(r_sz)
     for limb in range(len(s0)):
         rows[:, :, :, limb, 31 - lane] = s0[limb]
         rows[:, :, :, limb, 63 - lane] = s1[limb]
+    return rows, rounded
+
+
+def _toeplitz(rows, row):
+    """Limb row ``row`` of K3's key rows as its (G, O, L, k, u) Toeplitz
+    operand: entry (k, u) is byte 31 - k + u."""
+    k = torch.arange(32)
+    return rows[:, :, :, row][..., 31 - k[:, None] + k[None, :]]
+
+
+def _k3_operand(key_row):
+    """K3's key rows (:func:`_k3_rows`) -> the (L, 256, Q) operand whose
+    entry (c = g*64 + i*32 + u, q = s*64 + o*32 + k) is the Toeplitz
+    operand of the row that digit limb i meets in group s
+    (:func:`_k3_group`)."""
+    rows, rounded = _k3_rows(key_row)
+    g_sz, o_sz, l_sz, n_rows, _ = rows.shape
     n_groups = 4 if rounded else 5
-    k = torch.arange(r_sz)
-    at = 31 - k[:, None] + k[None, :]                       # [k, u]
-    op = torch.zeros((l_sz, g_sz, 2, r_sz, n_groups, o_sz, r_sz),
+    op = torch.zeros((l_sz, g_sz, 2, 32, n_groups, o_sz, 32),
                      dtype=torch.int64)
-    for (i, s), limb in meets.items():
-        vals = rows[:, :, :, limb][..., at]                 # (G, O, L, k, u)
-        op[:, :, i, :, s] = vals.permute(2, 0, 4, 1, 3)     # (L, G, u, O, k)
-    return op.reshape(l_sz, g_sz * 2 * r_sz, n_groups * o_sz * r_sz).to(
+    for row in range(n_rows):
+        vals = _toeplitz(rows, row).permute(2, 0, 4, 1, 3)  # (L, G, u, O, k)
+        for i in range(2):
+            s = _k3_group(rounded, row, i)
+            if s >= 0:
+                op[:, :, i, :, s] = vals
+    return op.reshape(l_sz, g_sz * 2 * 32, n_groups * o_sz * 32).to(
         torch.int8)
 
 
@@ -280,3 +307,113 @@ def test_k3_operand_step_equals_cmux_step(transform_type):
                            decomp_length=TP.decomp_length, **KW)
     got = fe.n_from_q(got.reshape(acc.shape))
     assert torch.equal(got, cmux.cmux_step_plain(acc, p, key[0], **KW))
+
+
+def _stacked_mac(key_row, a0, a1, mask1):
+    """Every slot's MAC in K3's stacked form, as the kernel issues it: per
+    block of kS samples (4 at (2, 2), else 2; a ragged last block padded
+    with zero samples) the mma's 8 N columns hold limb n & 1 of sample
+    n >> 1 for n < 2*kS and zeros above; each key limb row's Toeplitz
+    operand times those columns is an int32 accumulator of its own; sample
+    n's lo is the sum of its (row, limb) columns shifted by 8 * (group -
+    first group of lo) mod 2^32 (:func:`_k3_group`; the unused pairs
+    dropped), its hi (exact) row 0's limb-0 column alone.
+
+    :param a0, a1: (B, G, L, R) digit limbs, natural slot order.
+    :returns: (B, n_ch, mask1, L, R) int32 as ``flat_engine.limb_channels``
+        and the largest |accumulator|.
+    """
+    rows, rounded = _k3_rows(key_row)
+    b, g_sz, l_sz, r_sz = a0.shape
+    ks = 4 if (mask1, g_sz // mask1) == (2, 2) else 2
+    nb = -(-b // ks)
+
+    def blocks(a):
+        pad = a.new_zeros((nb * ks - b,) + a.shape[1:])
+        return torch.cat([a, pad]).reshape(nb, ks, g_sz, l_sz, r_sz)
+
+    cols = torch.zeros((nb, 8, g_sz, l_sz, r_sz), dtype=torch.int64)
+    cols[:, 0:2 * ks:2] = blocks(a0)
+    cols[:, 1:2 * ks:2] = blocks(a1)
+    first = 0 if rounded else 1
+    lo = torch.zeros((nb, ks, mask1, l_sz, r_sz), dtype=torch.int64)
+    hi = torch.zeros_like(lo)
+    largest = 0
+    for row in range(rows.shape[3]):
+        d = torch.einsum('gotku,bngtu->bnotk', _toeplitz(rows, row), cols)
+        largest = max(largest, int(d.abs().max()))
+        assert not d[:, 2 * ks:].any()          # the zero columns
+        for i in range(2):
+            part = d[:, i:2 * ks:2]
+            s = _k3_group(rounded, row, i)
+            if s >= first:
+                lo += part << (8 * (s - first))
+            if not rounded and (row, i) == (0, 0):
+                hi = part
+    chans = [lo] if rounded else [lo, hi]
+    out = torch.stack(chans, dim=2).reshape(nb * ks, len(chans), mask1, l_sz,
+                                            r_sz)
+    return wrap_i32(out[:b]), largest
+
+
+@pytest.mark.parametrize("limbs", ["random", "extreme"])
+@pytest.mark.parametrize("transform_type", ["NTT", "FFT"])
+@pytest.mark.parametrize("shape", ttf.KERNEL_SHAPES)
+def test_k3_stacked_mac_matches_per_group(shape, transform_type, limbs):
+    """K3's MAC with both digit limbs on the mma's N, one accumulator a key
+    limb row and the rows recombined by their groups, equals the per-group
+    MAC of the lanes engine (``flat_engine.limb_channels`` on
+    ``build_mac_rhs``, ``_mac_limb_table``'s groups) bit for bit, in both
+    channels, on 5 samples (a ragged block).  "extreme": digit limb 0 at
+    -128 everywhere, limb 1 at -128 or 127, and every key residue 32 mod
+    64, so that vlo is -32 on both sides and the exact hi channel sits at
+    its bound G * 2^17 in every output."""
+    mask1, decomp = shape
+    g_sz, b = mask1 * decomp, 5
+    exact = transform_type == 'NTT'
+    rng = np.random.RandomState(31 + 7 * mask1 + decomp)
+    hat = rng.randint(0, 2**38, (g_sz, mask1, 64, 32), dtype=np.int64)
+    if limbs == "extreme":
+        hat = (hat & ~63) | 32
+        a0 = torch.full((b, g_sz, 64, 32), -128, dtype=torch.int64)
+        a1 = torch.from_numpy(rng.choice([-128, 127], a0.shape))
+    else:
+        a0, a1 = (torch.from_numpy(rng.randint(-128, 128, (b, g_sz, 64, 32)))
+                  for _ in range(2))
+    hat = hat.astype(np.uint64)
+    if exact:
+        key_row = torch.from_numpy(ttf.centred_residues(hat))
+    else:
+        key_row = torch.from_numpy(np.stack(
+            [ttf.centred_residues(q * np.uint64(64))
+             for q in t_transform_ref.rounded_key_sides(hat)]))
+    rhs = ttf.build_mac_rhs(torch.from_numpy(ttf.key_limbs_host(hat, exact)))
+    bitrev = torch.from_numpy(ttf.BITREV_L)
+    want = tfe.limb_channels(a0[:, :, bitrev], a1[:, :, bitrev], rhs,
+                             mask1=mask1)
+    got, largest = _stacked_mac(key_row, a0, a1, mask1)
+    assert largest < 2**31
+    assert torch.equal(got[:, :, :, bitrev], want)
+    if exact:
+        hi = got[:, 1].to(torch.int64).abs()
+        assert int(hi.max()) <= g_sz * 2**17
+        if limbs == "extreme":
+            assert bool((hi == g_sz * 2**17).all())
+
+
+def test_mac_issue_counts():
+    """K3's MAC issues 96 (exact) and 64 (rounded) mma.sync a slot at
+    (2, 2), where one digit limb on N took 144 and 112, and 9/12 and 7/8 of
+    their N columns carry work; the kS = 2 shapes keep half of N empty
+    (``chip_smoke.mac_issue``, kS read from the kernel's source)."""
+    import chip_smoke
+    assert chip_smoke.block_samples(2, 2) == 4
+    assert chip_smoke.block_samples(3, 2) == chip_smoke.block_samples(2, 3) \
+        == 2
+    mac_issue = chip_smoke.mac_issue
+    assert mac_issue(2, 2, rounded=False) == (96, Fraction(9, 12))
+    assert mac_issue(2, 2, rounded=True) == (64, Fraction(7, 8))
+    assert mac_issue(3, 2, rounded=False) == (216, Fraction(9, 24))
+    assert mac_issue(2, 3, rounded=True) == (96, Fraction(7, 16))
+    with pytest.raises(ValueError):
+        mac_issue(3, 3, rounded=False)

@@ -9,16 +9,20 @@ that holds this script); the kernels default to K1 and K3 (``cmux_step``,
 of its own (``nufhe_tpu_torch/kernels/build.py``, every kernel of the tree
 at once, into the tree's ``_build/``); then, for each kernel, the
 ``cuobjdump -sass`` body of every function (its header line, which holds
-the mangled name, left out) is
-compared as a multiset between the trees, and both trees' ``ptxas``
-register and spill lines are printed.  Exits 1 if any kernel's code
-differs.  A template argument added with a default changes the mangled
-names but not the code, which is what this compares.
+the mangled name, left out) is compared as a multiset between the trees,
+and both trees' ``ptxas`` register and spill lines are printed.  Exits 1
+if any kernel's code differs.  A template argument added with a default
+changes the mangled names but not the code, which is what this compares.
+Where a kernel's multisets differ, each function is also compared on its
+own by its mangled name (one template instantiation; the Variant is
+``blind_rotate_kernel``'s last template argument), to show which ones
+changed when both trees have the same templates.
 """
 
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -39,13 +43,17 @@ def build(tree, names):
 
 
 def bodies(lib):
-    """{function header: SASS body} of a shared library."""
+    """{function header: SASS body} of a shared library; the header is the
+    mangled name without the per-build hash of its anonymous namespace, the
+    body has each run of blanks as one (``cuobjdump`` pads its columns to a
+    width that the library's other functions can change)."""
     sass = subprocess.run([CUOBJDUMP, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
     out = {}
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
-        out[name.strip()] = body
+        out[re.sub(r"_GLOBAL__N__[0-9a-f]{8}_", "_GLOBAL__N__",
+                   name.strip())] = re.sub(r"[ \t]+", " ", body)
     return out
 
 
@@ -70,19 +78,28 @@ def main(argv):
     libs = {old: build(old, names), new: build(new, names)}
     same_all = True
     for name in names:
-        digests = {}
+        digests, funcs = {}, {}
         for tree in (old, new):
-            funcs = bodies(libs[tree][name])
-            digests[tree] = sorted(hashlib.sha1(b.encode()).hexdigest()
-                                   for b in funcs.values())
+            sass = bodies(libs[tree][name])
+            funcs[tree] = {f: hashlib.sha1(b.encode()).hexdigest()
+                           for f, b in sass.items()}
+            digests[tree] = sorted(funcs[tree].values())
             print("%s in %s: %d functions, %s SASS lines"
-                  % (name, tree, len(funcs),
-                     sorted(b.count("\n") for b in funcs.values())))
+                  % (name, tree, len(sass),
+                     sorted(b.count("\n") for b in sass.values())))
             for line in ptxas_lines(tree, name):
                 print("  " + line)
         same = digests[old] == digests[new]
         same_all &= same
         print("%s: SASS %s" % (name, "identical" if same else "DIFFERENT"))
+        if not same:
+            # function by function, where the mangled names match
+            for f in sorted(set(funcs[old]) | set(funcs[new])):
+                a, b = funcs[old].get(f), funcs[new].get(f)
+                state = ("only in " + (old if b is None else new)
+                         if a is None or b is None
+                         else "identical" if a == b else "DIFFERENT")
+                print("  %s: %s" % (f, state))
     return 0 if same_all else 1
 
 
