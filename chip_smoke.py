@@ -94,7 +94,13 @@ and prints no result line):
    ``bs_decomp_length=3``, ``ks_log2_base=3``), keys made on the card, in
    both engines, on the default path (2 K3 + 1 K2) and the lanes path (100
    K4 + 1 K2) at ``lwe_size=100`` (to keep the run short), each checked
-   the same way;
+   the same way; then the TFHE library's default 128-bit set (n=630,
+   ``bs_decomp_length=3`` at ``bs_log2_base=7``): K3 at (2, 3) and base
+   2^7 at batch 2^14, both key forms, a chunk of 50 and the tail of 30
+   against the plain steps on 64 sampled rows, one launch and its steps
+   each by the counters (``ops/blind_rotate.steps``), and its NAND on the
+   4096 inputs, keys made on the card, both engines: 13 K3 launches of
+   630 steps in all, no K1, 1 K2;
 6. containers: each cloud key (both engines) through ``dumps()`` and
    ``NuFHECloudKey.loads`` (format 4: the one-sided limbs only), with its
    bytes and its seconds of load and of each part of the key preparation
@@ -257,11 +263,15 @@ K3_CHUNKS = (1, 7, 50)
 # take tens of seconds; the timing phase holds 2^14 x 50 at (2, 2))
 K3_LARGE_CHUNKS = (1, 7)
 # the gates at the JAX package's one-knob variant parameters run at this
-# LWE size, which the default chunk of 50 divides (so the default path runs
-# K3), to keep the run short
+# LWE size, to keep the run short
 VARIANT_LWE = 100
 VARIANTS = (dict(tlwe_mask_size=2), dict(bs_decomp_length=3),
             dict(ks_log2_base=3))
+# the TFHE library's default 128-bit gate bootstrapping set
+# (new_default_gate_bootstrapping_parameters; keyswitch 8 x 2 bits, N = 1024
+# and k = 1 as the defaults): 12 chunks of 50 and a tail of 30
+TFHE_LIB = dict(lwe_size=630, bs_decomp_length=3, bs_log2_base=7)
+TFHE_ROWS = 64             # K3's sampled rows against the plain steps at 2^14
 INT_BATCH = 1024           # integers of the smaller integer circuits
 DIV_BATCH = 256            # integers of the divider
 CROSSOVER_BATCHES = (1, 16, 128, 1024)
@@ -316,10 +326,11 @@ def counters():
 
 
 def reset_counts():
-    from nufhe_tpu_torch.ops import lanes_step
+    from nufhe_tpu_torch.ops import blind_rotate, lanes_step
     for mod in counters().values():
         mod.launches = 0
     lanes_step.collectives = 0
+    blind_rotate.steps = 0
 
 
 def read_counts():
@@ -355,9 +366,9 @@ def random_powers(rng, shape, dev):
     return torch.from_numpy(rng.randint(0, 2048, shape).astype(np.int32)).to(dev)
 
 
-def keyswitch_inputs(rng, batch, dev, log2_base=2):
+def keyswitch_inputs(rng, batch, dev, log2_base=2, out=500):
     from nufhe_tpu_torch.ops import lwe as dlwe
-    in_size, l, base, out = 1024, 8, 2**log2_base, 500
+    in_size, l, base = 1024, 8, 2**log2_base
     ks_a = rng.randint(-2**31, 2**31, (in_size, l, base, out)).astype(np.int32)
     ks_b = rng.randint(-2**31, 2**31, (in_size, l, base)).astype(np.int32)
     ks_a[:, :, 0] = 0
@@ -1128,7 +1139,7 @@ def variant_gates(nft, dev, rng):
     none = dict.fromkeys(KERNEL_NAMES, 0)
     lanes = nft.PerformanceParameters(single_kernel_bootstrap=False)
     print("variant parameters run at lwe_size=%d (not 500) to keep the run "
-          "short; the default chunk of %d divides it" % (VARIANT_LWE, CHUNK))
+          "short" % VARIANT_LWE)
     for i, knob in enumerate(VARIANTS):
         t0 = time.time()
         secret, cloud = nft.make_key_pair(nft.DeterministicRNG(SEED + 10 + i),
@@ -1143,7 +1154,7 @@ def variant_gates(nft, dev, rng):
         for mode, c in clouds:
             for path, perf, expect in (
                     ("default", None,
-                     dict(none, blind_rotate_chunk=VARIANT_LWE // CHUNK,
+                     dict(none, blind_rotate_chunk=-(-VARIANT_LWE // CHUNK),
                           keyswitch=1)),
                     ("lanes", lanes,
                      dict(none, lanes_step=VARIANT_LWE, keyswitch=1))):
@@ -1154,6 +1165,85 @@ def variant_gates(nft, dev, rng):
                 cpu_cloud = c if perf is None else cpu_lanes_cloud(nft, c, dev)
                 same_on_cpu(nft, label, cpu_cloud, "gate_nand", (cx, cy), out,
                             perf)
+
+
+def tfhe_lib_params(nft, dev, rng, results):
+    """The TFHE library's default 128-bit set (``TFHE_LIB``: n = 630, l = 3
+    at base 2^7).  K3 at (mask1, l) = (2, 3) and base 2^7 at batch 2^14, both
+    key forms: a chunk of 50 from step 0 and the tail of 30 from step 600,
+    each one launch of its steps by the counters, against the plain steps on
+    ``TFHE_ROWS`` sampled rows; K2 at output width 630 (640 padded) and
+    base 4 at batch 2^14 against its plain version; then the NAND through
+    ``VirtualMachine`` on 4096 pairs, keys made on the card, both engines:
+    13 K3 launches (12 chunks and the tail) of 630 steps, no K1 and one K2,
+    decrypting to the truth table and equal to the plain CPU gate on 8
+    inputs.  Prints one ``tfhe_lib_params`` JSON line."""
+    from nufhe_tpu_torch.ops import blind_rotate as brc, keyswitch as ks
+    n = TFHE_LIB["lwe_size"]
+    tail = n % CHUNK
+    tp = nft.NuFHEParameters(**TFHE_LIB).tgsw_params
+    kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
+    rows = torch.from_numpy(np.sort(rng.choice(
+        TIMING_BATCH, TFHE_ROWS, replace=False))).to(dev)
+    line = {"k3": [], "gates": []}
+    for mode in ("NTT", "FFT"):
+        key = random_key(rng, n, tp, dev, mode)
+        acc = random_acc(rng, TIMING_BATCH, dev)
+        bara_t = random_powers(rng, (n, TIMING_BATCH), dev)
+        sub_acc, sub_bara = acc[rows], bara_t[:, rows].contiguous()
+        for start, chunk in ((0, CHUNK), (n - tail, tail)):
+            torch.cuda.synchronize()
+            reset_counts()
+            got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk, **kw)
+            torch.cuda.synchronize()
+            counted = (brc.launches, brc.steps)
+            want = brc.blind_rotate_chunk_plain(sub_acc, sub_bara, key, start,
+                                                chunk, **kw)
+            label = ("K3 (mask1, l) = (2, 3) base 2^7 %s vs plain, batch %d "
+                     "(%d sampled rows), steps [%d, %d)"
+                     % (mode, TIMING_BATCH, TFHE_ROWS, start, start + chunk))
+            record_err(results, "blind_rotate_chunk", label,
+                       max_abs_err(got[rows], want))
+            if counted != (1, chunk):
+                raise AssertionError("%s: launches and steps %s, not (1, %d)"
+                                     % (label, counted, chunk))
+            line["k3"].append([mode, start, chunk, counted[1]])
+        del key, acc, bara_t, got, want
+    a, ab_limbs, meta = keyswitch_inputs(rng, TIMING_BATCH, dev, out=n)
+    kkw = dict(out_size=meta.output_size, decomp_length=meta.decomp_length,
+               log2_base=meta.log2_base)
+    got = ks.keyswitch_totals(a, ab_limbs, **kkw)
+    want = ks.keyswitch_totals_plain(a, ab_limbs, **kkw)
+    torch.cuda.synchronize()
+    record_err(results, "keyswitch", "K2 keyswitch base 4, output width %d, "
+               "vs plain, batch %d" % (n, TIMING_BATCH), max_abs_err(got, want))
+    line["k2"] = {"batch": TIMING_BATCH, "out": meta.output_size,
+                  "n_pad": int(ab_limbs.shape[3])}
+    del a, ab_limbs, got, want
+    t0 = time.time()
+    secret, cloud = nft.make_key_pair(nft.DeterministicRNG(SEED + 30),
+                                      **TFHE_LIB)
+    clouds = (("NTT", cloud), ("FFT", fft_cloud(nft, cloud, **TFHE_LIB)))
+    print("TFHE library set: keygen (on the card, n=%d): %.1f s"
+          % (n, time.time() - t0))
+    crng = nft.DeterministicRNG(SEED + 31)
+    x, y = (rng.randint(0, 2, MAIN_BATCH).astype(bool) for _ in range(2))
+    cx, cy = (nft.encrypt(crng, secret, v, device=dev) for v in (x, y))
+    expect = dict(dict.fromkeys(KERNEL_NAMES, 0),
+                  blind_rotate_chunk=-(-n // CHUNK), keyswitch=1)
+    for mode, c in clouds:
+        label = "TFHE library set (n=%d, l=3, base 2^7) default %s" % (n, mode)
+        out, counts = run_gate(nft, label, secret,
+                               nft.VirtualMachine(c, device=dev), "gate_nand",
+                               (cx, cy), ~(x & y), expect)
+        if brc.steps != n:
+            raise AssertionError("%s: K3 ran %d steps, not %d"
+                                 % (label, brc.steps, n))
+        line["gates"].append({"mode": mode, "k3": counts["blind_rotate_chunk"],
+                              "steps": brc.steps, "k1": counts["cmux_step"],
+                              "k2": counts["keyswitch"]})
+        same_on_cpu(nft, label, c, "gate_nand", (cx, cy), out)
+    print(json.dumps({"tfhe_lib_params": line}))
 
 
 def gate_ms_bit(nft, secret, vm, gate, args, want):
@@ -2493,6 +2583,7 @@ def smoke(nft, smi, dev, rng, oracle_job):
     host_key_gates(nft, dev, secret, host_prepared, nand)
     secure_rng_gate(nft, dev, rng)
     variant_gates(nft, dev, rng)
+    tfhe_lib_params(nft, dev, rng, results)
     t0 = time.time()
     containers_on_card(nft, dev, secret, cloud, cloud_fft, nand, host_prepared)
     del host_prepared

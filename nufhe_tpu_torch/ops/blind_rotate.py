@@ -17,8 +17,10 @@ import torch
 
 from . import cmux
 
-# launches of the CUDA kernel (not of the plain version)
+# launches of the CUDA kernel (not of the plain version), and the CMUX
+# steps those launches ran
 launches = 0
+steps = 0
 
 
 def blind_rotate_chunk_plain(acc, bara_t, key, start, chunk, *, offset,
@@ -35,7 +37,7 @@ def blind_rotate_chunk(acc, bara_t, key, start, chunk, *, offset, log2_base):
     """K3: steps [start, start + chunk) of the blind rotation.  A CUDA
     tensor runs the kernel; a CPU tensor the plain version.  Returns a new
     tensor (``acc`` is not updated in place)."""
-    global launches
+    global launches, steps
     mask1 = cmux.check_acc(acc, "blind_rotate_chunk")
     if bara_t.dtype != torch.int32:
         raise TypeError("blind_rotate_chunk takes int32 rotation amounts")
@@ -72,4 +74,5 @@ def blind_rotate_chunk(acc, bara_t, key, start, chunk, *, offset, log2_base):
               acc.device.index, stream)
     build.check("blind_rotate_chunk", code)
     launches += 1
+    steps += chunk
     return out

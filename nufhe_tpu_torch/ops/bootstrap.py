@@ -3,8 +3,10 @@ keyswitch (``nufhe_tpu/ops/bootstrap.py``'s counterpart), in both engine
 modes.  The key's form selects the blind rotation's engine:
 
 - the rows engine (int64 key of ``ops/transform.bootstrap_key_transformed``):
-  ``n / chunk_steps`` launches of the chunked kernel K3 when the chunk
-  divides n, else n launches of the step kernel K1;
+  with ``chunk_steps > 1``, ``n // chunk_steps`` launches of the chunked
+  kernel K3 and, where the chunk does not divide n, one more of the
+  ``n % chunk_steps`` steps left; with ``chunk_steps == 1``, n launches of
+  the step kernel K1;
 - the lanes engine (int8 key of ``ops/tgsw.prepare_bootstrap_key_device``,
   the JAX package's ``flat_engine`` path, ``bootstrap.py:249-262``): the
   accumulator in q-layout and n launches of the lanes step K4;
@@ -71,8 +73,9 @@ def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
         when ``exact``, else (n, 2, G, O, L, R); or the lanes engine's
         (n, L, C, Q) int8 key (``ops/tgsw.prepare_bootstrap_key_device``).
     :param bara: (B, n) int32 in [0, 2N).
-    :param chunk_steps: steps per K3 launch; 1, or a chunk that does not
-        divide n, runs one K1 launch a step.  The lanes engine ignores it.
+    :param chunk_steps: steps per K3 launch, the last launch taking the
+        ``n % chunk_steps`` steps left if any; 1 runs one K1 launch a step.
+        The lanes engine ignores it.
     :param group: limbs tensor parallelism: ``bk_dev`` is this rank's
         C-slice of whole g-blocks of the lanes key (n, L, C/size, Q), and each
         step's channels are summed over the process group.
@@ -109,9 +112,10 @@ def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
         return fe.n_from_q(acc_q.reshape(accum_a.shape))
     acc = accum_a.contiguous()
     chunk = int(chunk_steps)
-    if chunk > 1 and n % chunk == 0:
+    if chunk > 1:
         for start in range(0, n, chunk):
-            acc = brc.blind_rotate_chunk(acc, bara_t, bk_dev, start, chunk, **kw)
+            acc = brc.blind_rotate_chunk(acc, bara_t, bk_dev, start,
+                                         min(chunk, n - start), **kw)
     else:
         for i in range(n):
             acc = cmux.cmux_step(acc, bara_t[i], bk_dev[i], **kw)

@@ -6,8 +6,9 @@ and the constructor keeps the JAX package's signature, so user code carries
 over.  On the card the knobs mean:
 
 - ``chunk_steps``: CMUX steps per launch of the chunked blind rotation
-  (kernel K3, ``ops/blind_rotate.py``); 1, or a chunk that does not divide
-  the number of steps, runs one K1 launch a step.  Unset, it comes from the
+  (kernel K3, ``ops/blind_rotate.py``); a chunk that does not divide the
+  number of steps ends with one launch of the steps left, and 1 runs one
+  K1 launch a step.  Unset, it comes from the
   ``NUFHE_TPU_CHUNK_STEPS`` environment variable, else 50 on a CUDA device
   and 1 on the CPU — the JAX package's "50 on the accelerator, 1
   elsewhere".  The 50 is the JAX package's value; it is not tuned for the
