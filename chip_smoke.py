@@ -45,7 +45,19 @@ and prints no result line):
    (``ops/step_tricks``) and K12 (``ops/rotate_forms``), K3 with a stage
    in another form, 3 steps in both forms against their plain versions
    and K3 (K11's t8 and t8+t9 on the evened powers), and K13
-   (``ops/inverse_probe``, the inverse alone) every probe;
+   (``ops/inverse_probe``, the inverse alone) every probe; then
+   ``prepared_rows``: the row kernel (``ops/key_rows``, the key's int8
+   limb rows that K1 and K3 copy) against its plain version byte for byte
+   at (mask1, l) = (2, 2), (3, 2) and (2, 3), both key forms; K1 and K3
+   on rows prepared once for the whole key, K3 from step 1 at chunks 1, 7
+   and 50 and on an n = 630 key's tail of 30 steps at (2, 3), against the
+   plain steps; the row kernel at the n = 500 and n = 630 keys' sizes
+   against its plain version, timed beside its bound; ``rows_prepared``
+   1 a key and CUDA device after ``BootstrapKey.device`` (none for the
+   CPU) and 0 across the gates after it (NAND and MUX on K3, NAND on K1);
+   ``ptxas``'s registers and spills of every K3 instantiation.  Every
+   launch of K1, K3 and their variants in this script reads rows prepared
+   once for its key;
 4. keygen at the default parameters (n=500, N=1024): ``make_key_pair``
    with its default placement, on the card, and with ``on_device=False``,
    on the host, from one seed, each synchronised, the card's split by a
@@ -243,6 +255,10 @@ KERNEL_NAMES = ("cmux_step", "keyswitch", "blind_rotate_chunk",
                 "step_tricks", "rotate_forms", "inverse_probe")
 # K5-K13 run on the experiment tools' paths, not on a gate's
 GATE_KERNELS = KERNEL_NAMES[:4]
+# the kernels of the ``kernels`` line: the launched ones and the row
+# kernel, which runs with key preparation (``rows_prepared``), never in a
+# gate or a tool's timed launch
+LINE_KERNELS = KERNEL_NAMES + ("key_rows",)
 CONTEXT_STEPS = 100        # K6's timed rotation (tools/exp_round4.py:181)
 CHECK_STEPS = 4            # K6's, K11's and K12's steps against their plain
                            # versions at 2^14
@@ -326,11 +342,12 @@ def counters():
 
 
 def reset_counts():
-    from nufhe_tpu_torch.ops import blind_rotate, lanes_step
+    from nufhe_tpu_torch.ops import blind_rotate, key_rows, lanes_step
     for mod in counters().values():
         mod.launches = 0
     lanes_step.collectives = 0
     blind_rotate.steps = 0
+    key_rows.rows_prepared = 0
 
 
 def read_counts():
@@ -346,6 +363,13 @@ def random_key(rng, rows, tp, dev, transform_type, mask1=2):
     from nufhe_tpu_torch.ops import transform as tf
     return tf.bootstrap_key_transformed(
         random_bk(rng, rows, mask1, tp.decomp_length), dev, transform_type)
+
+
+def rows_of(key, transform_type):
+    """The int8 limb rows that K1 and K3 read for ``key`` (a key or one key
+    row), prepared once by the row kernel (``ops/key_rows``)."""
+    from nufhe_tpu_torch.ops import key_rows as kr
+    return kr.key_rows(key, transform_type == "FFT")
 
 
 def random_lanes_key(rng, rows, tp, dev, mode, mask1=2):
@@ -396,7 +420,8 @@ def check_kernels(nft, dev, rng, results):
         for batch in (64, MAIN_BATCH):
             acc, p = random_acc(rng, batch, dev), random_powers(rng, (batch,), dev)
             key_row = random_key(rng, 1, tp, dev, mode)[0].contiguous()
-            got = cmux.cmux_step(acc, p, key_row, **kw)
+            got = cmux.cmux_step(acc, p, key_row, rows=rows_of(key_row, mode),
+                                 **kw)
             want = cmux.cmux_step_plain(acc, p, key_row, **kw)
             torch.cuda.synchronize()
             record_err(results, "cmux_step", "K1 cmux_step %s vs plain, batch %d"
@@ -416,15 +441,18 @@ def check_kernels(nft, dev, rng, results):
     steps, start, chunk = 8, 2, 4
     for mode in ("NTT", "FFT"):
         key = random_key(rng, steps, tp, dev, mode)
+        rows = rows_of(key, mode)
         for batch in (101, MAIN_BATCH):     # 101: a partial sample group
             acc = random_acc(rng, batch, dev)
             bara_t = random_powers(rng, (steps, batch), dev)
-            got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk, **kw)
+            got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk,
+                                         rows=rows, **kw)
             want = brc.blind_rotate_chunk_plain(acc, bara_t, key, start, chunk,
                                                 **kw)
             by_k1 = acc
             for i in range(start, start + chunk):
-                by_k1 = cmux.cmux_step(by_k1, bara_t[i], key[i], **kw)
+                by_k1 = cmux.cmux_step(by_k1, bara_t[i], key[i], rows=rows[i],
+                                       **kw)
             torch.cuda.synchronize()
             record_err(results, "blind_rotate_chunk",
                        "K3 blind_rotate_chunk %s vs plain, batch %d, steps "
@@ -437,6 +465,175 @@ def check_kernels(nft, dev, rng, results):
     for mask1, decomp_length in VARIANT_SHAPES:
         check_variant_shape(nft, dev, rng, results, mask1, decomp_length)
     check_k3_batches(nft, dev, rng, results)
+
+
+def k3_ptxas(name="blind_rotate_chunk"):
+    """``ptxas``'s registers and spill bytes of each kernel function in the
+    build log of ``name``: {function: (registers, spill stores, spill
+    loads)}."""
+    from nufhe_tpu_torch.kernels import build
+    out, fn = {}, None
+    for line in build.build_log(name).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out.setdefault(fn, [0, 0, 0])[1:] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.setdefault(fn, [0, 0, 0])[0] = int(m.group(1))
+    return {fn: tuple(v) for fn, v in out.items()}
+
+
+def prepared_rows(nft, dev, rng, results):
+    """K1 and K3 on the key rows prepared once with the key: the row kernel
+    against its plain version, K1 and K3 against the plain steps on rows
+    prepared for the whole key, ``rows_prepared`` across key preparation
+    and gates, and K3's ``ptxas`` lines."""
+    from nufhe_tpu_torch.ops import blind_rotate as brc, cmux
+    from nufhe_tpu_torch.ops import key_rows as kr
+    t0 = time.time()
+    for mask1, decomp_length in ((2, 2),) + VARIANT_SHAPES:
+        tp = nft.NuFHEParameters(tlwe_mask_size=mask1 - 1,
+                                 bs_decomp_length=decomp_length).tgsw_params
+        kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
+        shape = "(mask1, l) = (%d, %d)" % (mask1, decomp_length)
+        steps, start = max(K3_CHUNKS) + 1, 1
+        for mode in ("NTT", "FFT"):
+            rounded = mode == "FFT"
+            key = random_key(rng, steps, tp, dev, mode, mask1)
+            kr.rows_prepared = 0
+            rows = kr.key_rows(key, rounded)
+            torch.cuda.synchronize()
+            if kr.rows_prepared != 1:
+                raise AssertionError("the row kernel: %d preparations"
+                                     % kr.rows_prepared)
+            record_err(results, "key_rows", "row kernel %s %s vs "
+                       "plain, %d steps" % (shape, mode, steps),
+                       max_abs_err(rows, kr.key_rows_plain(key, rounded)))
+            for batch in (1, 130):
+                acc = random_acc(rng, batch, dev, mask1)
+                bara_t = random_powers(rng, (steps, batch), dev)
+                got = cmux.cmux_step(acc, bara_t[start], key[start],
+                                     rows=rows[start], **kw)
+                want = cmux.cmux_step_plain(acc, bara_t[start], key[start],
+                                            **kw)
+                record_err(results, "cmux_step", "K1 %s %s on prepared rows "
+                           "vs plain, batch %d" % (shape, mode, batch),
+                           max_abs_err(got, want))
+                for chunk in K3_CHUNKS:
+                    got = brc.blind_rotate_chunk(acc, bara_t, key, start,
+                                                 chunk, rows=rows, **kw)
+                    want = brc.blind_rotate_chunk_plain(acc, bara_t, key,
+                                                        start, chunk, **kw)
+                    record_err(results, "blind_rotate_chunk", "K3 %s %s on "
+                               "prepared rows vs plain, batch %d, steps "
+                               "[%d, %d)" % (shape, mode, batch, start,
+                                             start + chunk),
+                               max_abs_err(got, want))
+            if kr.rows_prepared != 1:
+                raise AssertionError("K1/K3 on given rows prepared rows")
+            del key, rows
+
+    # the n = 630 key's tail: rows prepared for all 630 steps, K3 from 600
+    tp = nft.NuFHEParameters(**TFHE_LIB).tgsw_params
+    kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
+    n, start = TFHE_LIB["lwe_size"], TFHE_LIB["lwe_size"] // CHUNK * CHUNK
+    for mode in ("NTT", "FFT"):
+        key = random_key(rng, n, tp, dev, mode)
+        rows = kr.key_rows(key, mode == "FFT")
+        acc = random_acc(rng, 64, dev)
+        bara_t = random_powers(rng, (n, 64), dev)
+        got = brc.blind_rotate_chunk(acc, bara_t, key, start, n - start,
+                                     rows=rows, **kw)
+        want = brc.blind_rotate_chunk_plain(acc, bara_t, key, start,
+                                            n - start, **kw)
+        record_err(results, "blind_rotate_chunk", "K3 (2, 3) %s on prepared "
+                   "rows vs plain, n = %d, the tail [%d, %d)"
+                   % (mode, n, start, n), max_abs_err(got, want))
+        del key, rows
+
+    # the row kernel at the gate keys' sizes against its plain version,
+    # timed beside its bound (the int64 key read and the rows written once)
+    for (mask1, decomp_length), n in (((2, 2), N_LWE),
+                                      ((2, 3), TFHE_LIB["lwe_size"])):
+        tp = nft.NuFHEParameters(tlwe_mask_size=mask1 - 1,
+                                 bs_decomp_length=decomp_length).tgsw_params
+        for mode in ("NTT", "FFT"):
+            rounded = mode == "FFT"
+            key = random_key(rng, n, tp, dev, mode, mask1)
+            rows = kr.key_rows(key, rounded)
+            ms = cuda_ms(lambda: kr.key_rows(key, rounded), 10)
+            want, plain = timed_plain(lambda: kr.key_rows_plain(key, rounded))
+            record_err(results, "key_rows", "row kernel (%d, %d) %s vs plain, "
+                       "n = %d" % (mask1, decomp_length, mode, n),
+                       max_abs_err(rows, want))
+            n_bytes = key.numel() * key.element_size() + rows.numel()
+            bound, by = bound_ms(n_bytes, 0)
+            print("row kernel (%d, %d) %s, n = %d: %.4f ms (bound %.4f ms by "
+                  "%s, %d B; plain %.2f ms), rows %d B a step"
+                  % (mask1, decomp_length, mode, n, ms, bound, by, n_bytes,
+                     plain, rows[0].numel()))
+            if (mask1, decomp_length, mode) == (2, 2, "NTT"):
+                results["key_rows"].update(ms=ms, plain_ms=plain,
+                                           bound_ms=bound, bound_by=by,
+                                           library_ms=None)
+            del key, rows, want
+
+    # one preparation a key and device, none in the gates
+    inputs = [random_powers(rng, (MAIN_BATCH,), "cpu").numpy() & 1
+              for _ in range(3)]
+    for mode in ("NTT", "FFT"):
+        secret, cloud = nft.make_key_pair(nft.DeterministicRNG(SEED),
+                                          transform_type=mode)
+        bk = cloud.bootstrap_key
+        kr.rows_prepared = 0
+        bk.device(dev)
+        bk.device(dev)
+        bk.rows(dev)
+        bk.device("cpu")                # no rows off CUDA
+        counted = {"key": kr.rows_prepared}
+        bits = [b.astype(bool) for b in inputs]
+        cts = [nft.encrypt(nft.DeterministicRNG(SEED + 1), secret, b,
+                           device=dev) for b in bits]
+        for label, perf in (("chunk 50", None), ("chunk 1", dict(
+                chunk_steps=1))):
+            vm = nft.VirtualMachine(cloud, device=dev, perf_params=None
+                                    if perf is None else
+                                    nft.PerformanceParameters(
+                                        cloud.params, **perf))
+            torch.cuda.synchronize()
+            reset_counts()
+            nand = vm.gate_nand(cts[0], cts[1])
+            mux = vm.gate_mux(cts[0], cts[1], cts[2])
+            torch.cuda.synchronize()
+            counted[label] = dict(rows_prepared=kr.rows_prepared,
+                                  k1=read_counts()["cmux_step"],
+                                  k3=read_counts()["blind_rotate_chunk"])
+            n = cloud.params.in_out_params.size
+            expect = dict(rows_prepared=0, k1=0, k3=2 * n // CHUNK) \
+                if perf is None else dict(rows_prepared=0, k1=2 * n, k3=0)
+            if counted[label] != expect or not np.array_equal(
+                    nft.decrypt(secret, nand), ~(bits[0] & bits[1])) \
+                    or not np.array_equal(nft.decrypt(secret, mux),
+                                          np.where(bits[0], bits[1], bits[2])):
+                raise AssertionError("gates on prepared rows (%s %s): %s"
+                                     % (mode, label, counted))
+        print("rows_prepared %s: %s" % (mode, json.dumps(counted)))
+        if counted["key"] != 1 or bk.rows("cpu") is not None:
+            raise AssertionError("rows_prepared %s: one a key and CUDA "
+                                 "device expected, got %d" % (mode,
+                                                             counted["key"]))
+        if mode == "NTT":
+            results["key_rows"]["launches"] = counted["key"]
+        del secret, cloud, bk, cts
+    for fn, (regs, stores, loads) in sorted(k3_ptxas().items()):
+        print("K3 ptxas %s: %d registers, spill stores %d, loads %d bytes"
+              % (fn, regs, stores, loads))
+    print("prepared_rows phase: %.1f s" % (time.time() - t0))
 
 
 def block_samples(mask1, decomp_length):
@@ -495,10 +692,12 @@ def check_k3_batches(nft, dev, rng, results):
         shape = "(mask1, l) = (%d, %d)" % (mask1, decomp_length)
         for mode in ("NTT", "FFT"):
             key = random_key(rng, steps, tp, dev, mode, mask1)
+            rows = rows_of(key, mode)
             for batch in K3_BATCHES:
                 acc = random_acc(rng, batch, dev, mask1)
                 bara_t = random_powers(rng, (steps, batch), dev)
-                got = cmux.cmux_step(acc, bara_t[start], key[start], **kw)
+                got = cmux.cmux_step(acc, bara_t[start], key[start],
+                                     rows=rows[start], **kw)
                 want = cmux.cmux_step_plain(acc, bara_t[start], key[start],
                                             **kw)
                 torch.cuda.synchronize()
@@ -506,7 +705,7 @@ def check_k3_batches(nft, dev, rng, results):
                            % (shape, mode, batch), max_abs_err(got, want))
                 for chunk in K3_CHUNKS if batch <= 128 else K3_LARGE_CHUNKS:
                     got = brc.blind_rotate_chunk(acc, bara_t, key, start,
-                                                 chunk, **kw)
+                                                 chunk, rows=rows, **kw)
                     want = brc.blind_rotate_chunk_plain(acc, bara_t, key,
                                                         start, chunk, **kw)
                     torch.cuda.synchronize()
@@ -534,20 +733,23 @@ def check_variant_shape(nft, dev, rng, results, mask1, decomp_length):
     steps, start, chunk = 6, 1, 4
     for mode in ("NTT", "FFT"):
         lanes_key, key = random_lanes_key(rng, steps, tp, dev, mode, mask1)
+        rows = rows_of(key, mode)
         for batch in (64, 101):
             acc = random_acc(rng, batch, dev, mask1)
             bara_t = random_powers(rng, (steps, batch), dev)
-            got = cmux.cmux_step(acc, bara_t[0], key[0], **kw)
+            got = cmux.cmux_step(acc, bara_t[0], key[0], rows=rows[0], **kw)
             want = cmux.cmux_step_plain(acc, bara_t[0], key[0], **kw)
             torch.cuda.synchronize()
             record_err(results, "cmux_step", "K1 %s %s vs plain, batch %d"
                        % (shape, mode, batch), max_abs_err(got, want))
-            got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk, **kw)
+            got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk,
+                                         rows=rows, **kw)
             want = brc.blind_rotate_chunk_plain(acc, bara_t, key, start, chunk,
                                                 **kw)
             by_k1 = acc
             for i in range(start, start + chunk):
-                by_k1 = cmux.cmux_step(by_k1, bara_t[i], key[i], **kw)
+                by_k1 = cmux.cmux_step(by_k1, bara_t[i], key[i], rows=rows[i],
+                                       **kw)
             torch.cuda.synchronize()
             record_err(results, "blind_rotate_chunk", "K3 %s %s vs plain, "
                        "batch %d, steps [%d, %d)" % (shape, mode, batch, start,
@@ -576,6 +778,7 @@ def check_k4(dev, rng, results, tp, kw):
     steps = 4
     for mode in ("NTT", "FFT"):
         lanes_key, rows_key = random_lanes_key(rng, steps, tp, dev, mode)
+        rows = rows_of(rows_key, mode)
         for batch in (64, 100, MAIN_BATCH):     # 100: a ragged MAC tile
             acc = random_acc(rng, batch, dev)
             acc_q = fe.q_from_n(acc).reshape(batch, -1).contiguous()
@@ -591,7 +794,8 @@ def check_k4(dev, rng, results, tp, kw):
             bara_t, **kw)
         by_k1 = acc
         for i in range(steps):
-            by_k1 = cmux.cmux_step(by_k1, bara_t[i], rows_key[i], **kw)
+            by_k1 = cmux.cmux_step(by_k1, bara_t[i], rows_key[i],
+                                   rows=rows[i], **kw)
         torch.cuda.synchronize()
         record_err(results, "lanes_step", "K4 %s: %d launches vs %d K1 "
                    "launches on the same coefficient key, batch %d"
@@ -1188,13 +1392,15 @@ def tfhe_lib_params(nft, dev, rng, results):
     line = {"k3": [], "gates": []}
     for mode in ("NTT", "FFT"):
         key = random_key(rng, n, tp, dev, mode)
+        key_rows = rows_of(key, mode)
         acc = random_acc(rng, TIMING_BATCH, dev)
         bara_t = random_powers(rng, (n, TIMING_BATCH), dev)
         sub_acc, sub_bara = acc[rows], bara_t[:, rows].contiguous()
         for start, chunk in ((0, CHUNK), (n - tail, tail)):
             torch.cuda.synchronize()
             reset_counts()
-            got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk, **kw)
+            got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk,
+                                         rows=key_rows, **kw)
             torch.cuda.synchronize()
             counted = (brc.launches, brc.steps)
             want = brc.blind_rotate_chunk_plain(sub_acc, sub_bara, key, start,
@@ -1208,7 +1414,7 @@ def tfhe_lib_params(nft, dev, rng, results):
                 raise AssertionError("%s: launches and steps %s, not (1, %d)"
                                      % (label, counted, chunk))
             line["k3"].append([mode, start, chunk, counted[1]])
-        del key, acc, bara_t, got, want
+        del key, key_rows, acc, bara_t, got, want
     a, ab_limbs, meta = keyswitch_inputs(rng, TIMING_BATCH, dev, out=n)
     kkw = dict(out_size=meta.output_size, decomp_length=meta.decomp_length,
                log2_base=meta.log2_base)
@@ -1286,15 +1492,18 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
     k1_ms = {}
     for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
         key_row = c.bootstrap_key.device(dev)[0]
-        got = cmux.cmux_step(acc, p, key_row, **kw)
+        rows = c.bootstrap_key.rows(dev)[0]
+        got = cmux.cmux_step(acc, p, key_row, rows=rows, **kw)
         want = cmux.cmux_step_plain(acc, p, key_row, **kw)
         torch.cuda.synchronize()
         record_err(results, "cmux_step", "K1 %s vs plain, batch %d"
                    % (mode, b), max_abs_err(got, want))
         del got, want
-        k1_ms[mode] = cuda_ms(lambda: cmux.cmux_step(acc, p, key_row, **kw), 20)
+        k1_ms[mode] = cuda_ms(lambda: cmux.cmux_step(acc, p, key_row,
+                                                     rows=rows, **kw), 20)
         plain = cuda_ms(lambda: cmux.cmux_step_plain(acc, p, key_row, **kw), 2)
-        n_bytes = 2 * acc.numel() * 4 + p.numel() * 4 + key_row.numel() * 8
+        # the step's key limb rows, int8, which the kernel reads
+        n_bytes = 2 * acc.numel() * 4 + p.numel() * 4 + rows.numel()
         # the design's own operations: the int8 multiply-adds of K3's MAC
         # for one step; beside it the int64 count of the first design
         bound, by = bound_ms(n_bytes, mac_ops(b, mode), INT8_OPS_PER_S)
@@ -1313,9 +1522,11 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
     bara_t = random_powers(rng, (N_LWE, b), dev)
     for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
         key = c.bootstrap_key.device(dev)
-        got = brc.blind_rotate_chunk(acc, bara_t, key, 0, CHUNK, **kw)
-        k3_ms = cuda_ms(
-            lambda: brc.blind_rotate_chunk(acc, bara_t, key, 0, CHUNK, **kw), 3)
+        rows = c.bootstrap_key.rows(dev)
+        got = brc.blind_rotate_chunk(acc, bara_t, key, 0, CHUNK, rows=rows,
+                                     **kw)
+        k3_ms = cuda_ms(lambda: brc.blind_rotate_chunk(
+            acc, bara_t, key, 0, CHUNK, rows=rows, **kw), 3)
         plain_out = []
         plain = cuda_ms(lambda: plain_out.append(brc.blind_rotate_chunk_plain(
             acc, bara_t, key, 0, CHUNK, **kw)), 1)
@@ -1323,8 +1534,8 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
                    "chunk %d" % (mode, b, CHUNK),
                    max_abs_err(got, plain_out[0]))
         del got, plain_out
-        row_bytes = key[0].numel() * 8
-        n_bytes = 2 * acc.numel() * 4 + CHUNK * b * 4 + CHUNK * row_bytes
+        n_bytes = (2 * acc.numel() * 4 + CHUNK * b * 4
+                   + CHUNK * rows[0].numel())
         # the design's own operations: int8 multiply-adds of the MAC, 64
         # slots x 256 inputs x Q outputs a sample and step (K4's count x
         # CHUNK); beside it the int64 count of the first design
@@ -1670,32 +1881,41 @@ def check_step_parts(nft, dev, rng, results):
     tp = nft.NuFHEParameters().tgsw_params
     kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
     key_row = random_key(rng, 1, tp, dev, "NTT")[0].contiguous()
+    rows = rows_of(key_row, "NTT")
     for batch in (101, 256):
         acc, p = random_acc(rng, batch, dev), random_powers(rng, (batch,), dev)
         for name in sp.PARTS:
-            got = sp.step_part(name, acc, p, key_row, **kw)
+            got = sp.step_part(name, acc, p, key_row, rows=rows, **kw)
             want = sp.step_part_plain(name, acc, p, key_row, **kw)
             torch.cuda.synchronize()
             record_err(results, "step_parts", "K5 %r vs plain, batch %d"
                        % (name, batch), max_abs_err(got, want))
         record_err(results, "step_parts", "K5 'FULL step' vs K1, batch %d"
-                   % batch, max_abs_err(sp.step_part("FULL step", acc, p,
-                                                     key_row, **kw),
-                                        cmux.cmux_step(acc, p, key_row, **kw)))
+                   % batch, max_abs_err(
+                       sp.step_part("FULL step", acc, p, key_row, rows=rows,
+                                    **kw),
+                       cmux.cmux_step(acc, p, key_row, rows=rows, **kw)))
     reset_counts()
+
+
+def step_row_bytes(mode):
+    """Bytes of one step's int8 key limb rows at the default shape, which
+    K1, K3 and their variants read (``ops/key_rows``): 196,608 exact,
+    131,072 rounded."""
+    from nufhe_tpu_torch.ops import key_rows as kr, step_parts as sp
+    return sp.L * sp.G * sp.MASK1 * kr.rows_per_pair(mode == "FFT") * 64
 
 
 def part_bound(name, batch, mode="NTT", rotates=False):
     """(bound ms, by) of one K5 part (K9's rotating forms: ``rotates``):
-    acc in, its output out, the powers where it rotates, the key row where
-    it reads it, and the MAC's int8 operations where it runs the MAC."""
+    acc in, its output out, the powers where it rotates, the key rows where
+    it reads them, and the MAC's int8 operations where it runs the MAC."""
     from nufhe_tpu_torch.ops import step_parts as sp
     n_bytes = batch * 2 * 1024 * 4 + batch * sp.out_polys(name) * 1024 * 4
     if name in ("rotate", "rot+decomp", "FULL step") or rotates:
         n_bytes += batch * 4
     if name in ("dec+fwd+key", "dec+fwd+mac", "dec+fwd+mac+inv", "FULL step"):
-        n_bytes += sp.G * sp.MASK1 * sp.L * sp.R * 8 * (2 if mode == "FFT"
-                                                        else 1)
+        n_bytes += step_row_bytes(mode)
     macs = name in ("dec+fwd+mac", "dec+fwd+mac+inv", "FULL step")
     return bound_ms(n_bytes, mac_ops(batch, mode) if macs else 0,
                     INT8_OPS_PER_S)
@@ -1715,9 +1935,8 @@ def context_bound(batch, mode, steps):
     """(bound ms, by) of ``steps`` steps of K6's "FULL" variant (K3): the
     accumulator in and out, the steps' powers and key rows, and the MAC's
     int8 operations."""
-    from nufhe_tpu_torch.ops import step_parts as sp
-    key_bytes = sp.G * sp.MASK1 * sp.L * sp.R * 8 * (2 if mode == "FFT" else 1)
-    n_bytes = 2 * batch * 2 * 1024 * 4 + steps * (batch * 4 + key_bytes)
+    n_bytes = (2 * batch * 2 * 1024 * 4
+               + steps * (batch * 4 + step_row_bytes(mode)))
     return bound_ms(n_bytes, steps * mac_ops(batch, mode), INT8_OPS_PER_S)
 
 
@@ -1739,9 +1958,10 @@ def step_parts_timing(dev, results, microbench, smi):
         raise AssertionError("microbench parts did not run on K5 alone")
     results["step_parts"]["launches"] = counts["step_parts"]
     acc, p, row, kw = microbench._setup(b, dev, exact=True)
+    rows = rows_of(row, "NTT")
     plain = {}
     for name in sp.PARTS:
-        got = sp.step_part(name, acc, p, row, **kw)
+        got = sp.step_part(name, acc, p, row, rows=rows, **kw)
         plain_out = []
         plain[name] = cuda_ms(lambda: plain_out.append(
             sp.step_part_plain(name, acc, p, row, **kw)), 1)
@@ -1785,12 +2005,13 @@ def check_step_experiments(nft, dev, rng, results):
     for mode in ("NTT", "FFT"):
         key = random_key(rng, 8, tp, dev, mode)
         key_row = key[0].contiguous()
+        rows = rows_of(key, mode)
         for batch in (101, 256):
             acc = random_acc(rng, batch, dev)
             bara_t = random_powers(rng, (8, batch), dev)
             for v in sc.VARIANTS:
                 got = sc.step_context(v, acc, bara_t, key, 2, CHECK_STEPS,
-                                      **kw)
+                                      rows=rows, **kw)
                 want = sc.step_context_plain(v, acc, bara_t, key, 2,
                                              CHECK_STEPS, **kw)
                 torch.cuda.synchronize()
@@ -1799,19 +2020,20 @@ def check_step_experiments(nft, dev, rng, results):
                            max_abs_err(got, want))
             p = bara_t[0].contiguous()
             for name in spf.PARTS:
-                got = spf.step_profile(name, acc, p, key_row, **kw)
+                got = spf.step_profile(name, acc, p, key_row, rows=rows[0],
+                                       **kw)
                 want = spf.step_profile_plain(name, acc, p, key_row, **kw)
                 torch.cuda.synchronize()
                 record_err(results, "step_profile", "K9 %r %s vs plain, "
                            "batch %d" % (name, mode, batch),
                            max_abs_err(got, want))
-            k1 = cmux.cmux_step(acc, p, key_row, **kw)
+            k1 = cmux.cmux_step(acc, p, key_row, rows=rows[0], **kw)
             record_err(results, "step_profile", "K9 'FULL step' %s vs K1, "
                        "batch %d" % (mode, batch), max_abs_err(
                            spf.step_profile("FULL step", acc, p, key_row,
-                                            **kw), k1))
+                                            rows=rows[0], **kw), k1))
             if mode == "NTT":
-                got = so.step_overlap(acc, p, key_row, **kw)
+                got = so.step_overlap(acc, p, key_row, rows=rows[0], **kw)
                 record_err(results, "step_overlap", "K8 vs plain, batch %d"
                            % batch, max_abs_err(got, so.step_overlap_plain(
                                acc, p, key_row, **kw)))
@@ -1866,11 +2088,13 @@ def context_phase(dev, results, e4, smi):
     for mode in ("NTT", "FFT"):
         acc, bara_t, key, kw = e4.context_inputs(b, dev, CONTEXT_STEPS,
                                                  mode == "NTT")
-        got = sc.step_context("FULL", acc, bara_t, key, 0, CONTEXT_STEPS, **kw)
+        rows = rows_of(key, mode)
+        got = sc.step_context("FULL", acc, bara_t, key, 0, CONTEXT_STEPS,
+                              rows=rows, **kw)
         by_k3 = acc
         for start in range(0, CONTEXT_STEPS, CHUNK):
             by_k3 = brc.blind_rotate_chunk(by_k3, bara_t, key, start, CHUNK,
-                                           **kw)
+                                           rows=rows, **kw)
         record_err(results, "step_context", "K6 'FULL' %s, %d steps in one "
                    "launch, vs %d K3 launches of %d, batch %d"
                    % (mode, CONTEXT_STEPS, CONTEXT_STEPS // CHUNK, CHUNK, b),
@@ -1878,7 +2102,8 @@ def context_phase(dev, results, e4, smi):
         del got, by_k3
         plain = {}
         for v in sc.VARIANTS:
-            got = sc.step_context(v, acc, bara_t, key, 0, CHECK_STEPS, **kw)
+            got = sc.step_context(v, acc, bara_t, key, 0, CHECK_STEPS,
+                                  rows=rows, **kw)
             want, plain[v] = timed_plain(lambda: sc.step_context_plain(
                 v, acc, bara_t, key, 0, CHECK_STEPS, **kw))
             record_err(results, "step_context", "K6 %r %s vs plain, %d "
@@ -1886,7 +2111,7 @@ def context_phase(dev, results, e4, smi):
                        max_abs_err(got, want))
             del got, want
         ms_check = cuda_ms(lambda: sc.step_context(
-            "FULL", acc, bara_t, key, 0, CHECK_STEPS, **kw), 5)
+            "FULL", acc, bara_t, key, 0, CHECK_STEPS, rows=rows, **kw), 5)
         per_step, counts = tool_counts(
             "exp_round4_torch context %s, batch %d" % (mode, b),
             "step_context", lambda: e4.context(b, dev, n_steps=CONTEXT_STEPS,
@@ -1918,9 +2143,10 @@ def profile_phase(dev, results, microbench, e4, smi):
     line = {}
     for mode in ("NTT", "FFT"):
         acc, p, row, kw = microbench._setup(b, dev, exact=mode == "NTT")
+        rows = rows_of(row, mode)
         plain = {}
         for name in spf.PARTS:
-            got = spf.step_profile(name, acc, p, row, **kw)
+            got = spf.step_profile(name, acc, p, row, rows=rows, **kw)
             want, plain[name] = timed_plain(lambda: spf.step_profile_plain(
                 name, acc, p, row, **kw))
             record_err(results, "step_profile", "K9 %r %s vs plain, batch %d"
@@ -1928,7 +2154,7 @@ def profile_phase(dev, results, microbench, e4, smi):
             del want
         record_err(results, "step_profile", "K9 'FULL step' %s vs K1, batch "
                    "%d" % (mode, b), max_abs_err(
-                       got, cmux.cmux_step(acc, p, row, **kw)))
+                       got, cmux.cmux_step(acc, p, row, rows=rows, **kw)))
         ms, counts = tool_counts(
             "exp_round4_torch profile %s, batch %d" % (mode, b),
             "step_profile", lambda: e4.profile(b, dev, exact=mode == "NTT"))
@@ -1988,13 +2214,14 @@ def overlap_phase(dev, results, microbench, eo, smi):
     from nufhe_tpu_torch.ops import cmux, step_overlap as so
     b = TIMING_BATCH
     acc, p, row, kw = microbench._setup(b, dev, exact=True)
-    got = so.step_overlap(acc, p, row, **kw)
+    rows = rows_of(row, "NTT")
+    got = so.step_overlap(acc, p, row, rows=rows, **kw)
     want, plain = timed_plain(lambda: so.step_overlap_plain(acc, p, row,
                                                             **kw))
     record_err(results, "step_overlap", "K8 vs plain, batch %d" % b,
                max_abs_err(got, want))
     record_err(results, "step_overlap", "K8 vs K1, batch %d" % b,
-               max_abs_err(got, cmux.cmux_step(acc, p, row, **kw)))
+               max_abs_err(got, cmux.cmux_step(acc, p, row, rows=rows, **kw)))
     del got, want
     res, counts = tool_counts("exp_overlap_torch, batch %d" % b,
                               "step_overlap", lambda: eo.run(b, dev))
@@ -2040,13 +2267,15 @@ def check_step_variants(nft, dev, rng, results):
     for mode in ("NTT", "FFT"):
         key = random_key(rng, 4, tp, dev, mode)
         key_row = key[0].contiguous()
+        rows = rows_of(key, mode)
         for batch in (101, 256):
             acc = random_acc(rng, batch, dev)
             bara_t = random_powers(rng, (4, batch), dev)
             p = bara_t[0].contiguous()
-            k1 = cmux.cmux_step(acc, p, key_row, **kw)
+            k1 = cmux.cmux_step(acc, p, key_row, rows=rows[0], **kw)
             for name in ss.SCHEDULES:
-                got = ss.step_schedule(name, acc, p, key_row, **kw)
+                got = ss.step_schedule(name, acc, p, key_row, rows=rows[0],
+                                       **kw)
                 record_err(results, "step_schedules", "K10 %r %s vs plain, "
                            "batch %d" % (name, mode, batch), max_abs_err(
                                got, ss.step_schedule_plain(name, acc, p,
@@ -2056,9 +2285,10 @@ def check_step_variants(nft, dev, rng, results):
                            max_abs_err(got, k1))
             k3 = {even: brc.blind_rotate_chunk(
                 acc, st.even_powers(bara_t) if even else bara_t, key, 1, 3,
-                **kw) for even in (False, True)}
+                rows=rows, **kw) for even in (False, True)}
             for name in st.VARIANTS:
-                got = st.step_trick(name, acc, bara_t, key, 1, 3, **kw)
+                got = st.step_trick(name, acc, bara_t, key, 1, 3, rows=rows,
+                                    **kw)
                 record_err(results, "step_tricks", "K11 %r %s vs plain, "
                            "batch %d" % (name, mode, batch), max_abs_err(
                                got, st.step_trick_plain(name, acc, bara_t,
@@ -2067,7 +2297,8 @@ def check_step_variants(nft, dev, rng, results):
                            "%d" % (name, mode, batch),
                            max_abs_err(got, k3[name in st.EVEN]))
             for form in rf.FORMS:
-                got = rf.rotate_form(form, acc, bara_t, key, 1, 3, **kw)
+                got = rf.rotate_form(form, acc, bara_t, key, 1, 3, rows=rows,
+                                     **kw)
                 record_err(results, "rotate_forms", "K12 %r %s vs plain, "
                            "batch %d" % (form, mode, batch), max_abs_err(
                                got, rf.rotate_form_plain(form, acc, bara_t,
@@ -2096,11 +2327,13 @@ def schedules_phase(dev, results, microbench, e3, smi):
     line = {}
     for mode in ("NTT", "FFT"):
         acc, p, row, kw = microbench._setup(b, dev, exact=mode == "NTT")
-        k1 = cmux.cmux_step(acc, p, row, **kw)
+        rows = rows_of(row, mode)
+        k1 = cmux.cmux_step(acc, p, row, rows=rows, **kw)
         for name in ss.SCHEDULES:
             record_err(results, "step_schedules", "K10 %r %s vs K1, batch %d"
                        % (name, mode, b), max_abs_err(
-                           ss.step_schedule(name, acc, p, row, **kw), k1))
+                           ss.step_schedule(name, acc, p, row, rows=rows,
+                                            **kw), k1))
         want, plain = timed_plain(lambda: ss.step_schedule_plain(
             "v3", acc, p, row, **kw))
         record_err(results, "step_schedules", "K10 'v3' %s vs plain, batch "
@@ -2131,21 +2364,23 @@ def chunk_variants_phase(dev, results, e4, kernel, label, variants, even,
     for mode in ("NTT", "FFT"):
         acc, bara_t, key, kw = e4.context_inputs(b, dev, CONTEXT_STEPS,
                                                  mode == "NTT")
+        rows = rows_of(key, mode)
         k3 = {}
         for v in variants:
             if (v in even) not in k3:
                 k3[v in even] = brc.blind_rotate_chunk(
                     acc, st.even_powers(bara_t) if v in even else bara_t,
-                    key, 0, CONTEXT_STEPS, **kw)
+                    key, 0, CONTEXT_STEPS, rows=rows, **kw)
             record_err(results, kernel, "%s %r %s, %d steps in one launch, "
                        "vs one K3 launch, batch %d" % (label, v, mode,
                                                       CONTEXT_STEPS, b),
                        max_abs_err(run_one(v, acc, bara_t, key, 0,
-                                           CONTEXT_STEPS, **kw),
+                                           CONTEXT_STEPS, rows=rows, **kw),
                                    k3[v in even]))
         del k3
         first = variants[0]
-        got = run_one(first, acc, bara_t, key, 0, CHECK_STEPS, **kw)
+        got = run_one(first, acc, bara_t, key, 0, CHECK_STEPS, rows=rows,
+                      **kw)
         want, plain = timed_plain(lambda: run_plain(
             first, acc, bara_t, key, 0, CHECK_STEPS, **kw))
         record_err(results, kernel, "%s %r %s vs plain, %d steps, batch %d"
@@ -2153,7 +2388,7 @@ def chunk_variants_phase(dev, results, e4, kernel, label, variants, even,
                    max_abs_err(got, want))
         del got, want
         ms_check = cuda_ms(lambda: run_one(first, acc, bara_t, key, 0,
-                                           CHECK_STEPS, **kw), 5)
+                                           CHECK_STEPS, rows=rows, **kw), 5)
         res, counts = tool_counts("%s %s, batch %d" % (label, mode, b),
                                   kernel, lambda: run_tool(mode))
         bound, by = context_bound(b, mode, CHECK_STEPS)
@@ -2569,8 +2804,13 @@ def smoke(nft, smi, dev, rng, oracle_job):
             name="inverse_probe", route="cuda",
             source="nufhe_tpu_torch/kernels/csrc/inverse_probe.cu",
             replaces="tools/exp_inverse.py:89"),
+        "key_rows": dict(
+            name="key_rows", route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/key_rows.cu",
+            replaces=None),
     }
     check_kernels(nft, dev, rng, results)
+    prepared_rows(nft, dev, rng, results)
     check_step_parts(nft, dev, rng, results)
     check_step_experiments(nft, dev, rng, results)
     check_step_variants(nft, dev, rng, results)
@@ -2610,7 +2850,7 @@ def smoke(nft, smi, dev, rng, oracle_job):
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {k: results[name][k] for k in keys + ("forms",)
-         if k in results[name]} for name in KERNEL_NAMES]}))
+         if k in results[name]} for name in LINE_KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

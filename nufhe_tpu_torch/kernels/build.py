@@ -61,6 +61,8 @@ KERNELS = {
                       _I, _P]),
     "inverse_probe": ("inverse_probe.cu", "inverse_probe_launch",
                       [_P, _P, _I, _I, _I, _P]),
+    "key_rows": ("key_rows.cu", "key_rows_launch",
+                 [_P, _P, _I, _I, _I, _I, _P]),
 }
 
 # every kernel's nvcc flags (``-Xptxas -v`` for the build log)

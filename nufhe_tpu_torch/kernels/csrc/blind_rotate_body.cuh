@@ -32,9 +32,9 @@
 //   acc     (B, Mask1, 1024) int32, batch-major, contiguous
 //   bara_t  (n, B) int32 in [0, 2048): the rotation amounts, one row a step
 //           (K1: the (B,) powers, as one row)
-//   key     the transformed key: (n, G, Mask1, 64, 32) int64 exact, or
-//           (n, 2, G, Mask1, 64, 32) rounded (ops/transform.py), residues
-//           mod 2^38, centred (K1: one row)
+//   rows    the key's int8 limb rows of steps [start, start + chunk)
+//           (ops/key_rows.py): (chunk, 64, G, Mask1, 6, 64) exact, (chunk,
+//           64, G, Mask1, 4, 64) rounded (K1: one step's)
 //   out     (B, Mask1, 1024) int32 (a separate buffer; the wrapper allocates
 //           it)
 //   start   first step; the wrapper checks 0 <= start, start + chunk <= n
@@ -50,20 +50,19 @@
 //      exact (groups B, A0..A3) or 4*32*Mask1 rounded (A0..A3), by mma.sync
 //      m16n8k32 s8 x s8 -> s32 with both int8 limbs of the kS samples'
 //      digits on the mma's N (2kS of its 8 columns: all of them at (2, 2),
-//      half at kS = 2); a warp owns a slot.  The A operand is the key,
-//      built on chip: the warp loads the slot's int64 residues (G*Mask1*32
-//      exact, twice that rounded) from device memory, splits each into the
-//      two-sided int8 limbs of ops/transform.key_limbs_host (side 0 from +v,
-//      side 1 from -v mod 2^38 exact; each stored side rounded,
-//      64*round(./64), in the rounded form), and writes per (g, o, limb) one
-//      64-byte row, side 0 then side 1, reversed: the Toeplitz operand's
-//      entry (k, u) is byte 31 - k + u of it, so a fragment's 4 consecutive
-//      K bytes are one unaligned word of the row.  The two 16-row M tiles of
+//      half at kS = 2); a warp owns a slot.  The A operand is the key: per
+//      (g, o, limb) one 64-byte row of the two-sided int8 limbs of
+//      ops/transform.key_limbs_host, side 0 then side 1, reversed: the
+//      Toeplitz operand's entry (k, u) is byte 31 - k + u of it, so a
+//      fragment's 4 consecutive K bytes are one unaligned word of the row.
+//      The rows are prepared once with the key (key_rows.cu) and stored
+//      slot-major, so the warp copies its slot's G*Mask1*6 rows (4 rounded)
+//      from device memory into shared memory, 16 bytes a lane a cp.async;
+//      the copy of its first slot is issued before phases 1-3 and lands
+//      while they run.  The two 16-row M tiles of
 //      an output polynomial take the odd and the even outputs k, so the 8
 //      fragment registers a thread needs from a row all come from the same 4
-//      words (4 shared loads, 6 funnel shifts).  The limbs are split with
-//      32-bit arithmetic on any representative mod 2^38 (no centring), the 4
-//      balanced radix-2^8 digits of a word at once.  A limb row meets the
+//      words (4 shared loads, 6 funnel shifts).  A limb row meets the
 //      digits' limb 0 in its own group and limb 1 in the next (the table of
 //      ops/transform._mac_limb_table, mac_group), so with both digit limbs
 //      on N each of the 6 row fragments (4 rounded) feeds one mma a tile
@@ -106,18 +105,22 @@
 // (5.24 M exact at (2, 2), 4.19 M rounded); at batch 2^14 and chunk 50,
 // 8.6e12 operations exact, 4.34 ms at the H100's dense int8 rate of
 // 1979e12/s (3.47 ms rounded).  Bytes: the accumulator in and out, the
-// rotation amounts and the chunk's key rows (131 KB exact each at (2, 2)).
-// L2 traffic: one key row a block and step, 2^14 / 4 x 131 KB = 0.54 GB a
-// step exact.  Issued: 2 * Mask1 * G * 6 mma.sync a slot (4 rows rounded),
-// 96 exact and 64 rounded at (2, 2), 9216 and 6144 a block and step (one
-// digit limb on N: 144 and 112); an mma takes its time whatever share of
-// its columns carries work (chip_smoke.py's mac_issue counts both).  Every
+// rotation amounts and the chunk's key rows (196,608 B a step exact at (2,
+// 2), 131,072 rounded, 294,912 at (2, 3) exact; 1.5x, 0.5x and 1.5x the
+// int64 key they are prepared from).  L2 traffic: one step's key rows a
+// block and step, 2^14 / 4 x 196,608 B = 0.81 GB a step exact at (2, 2)
+// (0.54 GB rounded; 2^14 / 2 x 294,912 B = 2.4 GB at (2, 3)).  Issued:
+// 2 * Mask1 * G * 6 mma.sync a slot (4 rows rounded), 96 exact and 64
+// rounded at (2, 2), 9216 and 6144 a block and step (one digit limb on N:
+// 144 and 112); an mma takes its time whatever share of its columns
+// carries work (chip_smoke.py's mac_issue counts both).  Every
 // instantiation runs this one MAC form, the split halves (K8) and the
 // sample pipelines (K10) included.
 
 #pragma once
 
 #include <type_traits>
+#include <utility>
 
 #include "rotate_common.cuh"
 
@@ -133,7 +136,6 @@ struct Shape {
   static constexpr int kWarps =
       kDigitRoles > 2 * kS * M ? kDigitRoles : 2 * kS * M;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kSide = kG * M * kL * kR;  // int64 values in one side
   static constexpr int kAccWords = M * kN;        // a sample's accumulator
   static constexpr int kWorkWords = M * kL * kR;  // a sample's lo channel
   // a slot's limbs ([g][limb][sample][32 bytes]), or its hi channel
@@ -141,39 +143,59 @@ struct Shape {
       kS * (16 * kG > 32 * M ? 16 * kG : 32 * M);
 };
 
-// The key rows of MAC slot p (frequency rev6(p)), built by the calling
-// warp from the slot's int64 key residues: row (g, o, L) byte 31 - r is
-// limb L of side 0 at rotation r, byte 63 - r that of side 1.  Digit
-// polynomials g in [kG0, kG0 + kGn) (all of them but in K8's halves), row
-// g - kG0 of arow.
+// The key rows of one step (ops/key_rows.py, key_rows.cu): slot-major, MAC
+// slot p (frequency rev6(p)) at p * kSlotBytes, its row (g, o, L) at ((g *
+// M + o) * kRows + L) * 64; byte 31 - r is limb L of side 0 at rotation r,
+// byte 63 - r that of side 1.
+template <int M, int D, bool kRounded>
+struct KeyRows {
+  static constexpr int kRows = kRounded ? 4 : 6;   // limb rows a (g, o)
+  static constexpr int kSlotBytes = M * D * M * kRows * 64;
+  static constexpr int kStepBytes = kL * kSlotBytes;
+};
+
+// One 16-byte cp.async of a lane, kOff bytes past its addresses (an
+// immediate of the instruction, so that a copy takes no registers of its
+// own)
+template <int kOff>
+__device__ __forceinline__ void copy16(uint32_t dst, const int8_t* src) {
+  asm volatile("cp.async.cg.shared.global [%0+%2], [%1+%2], 16;\n" ::"r"(
+                   dst),
+               "l"(src), "n"(kOff)
+               : "memory");
+}
+
+template <int... kI>
+__device__ __forceinline__ void copy16s(uint32_t dst, const int8_t* src,
+                                        std::integer_sequence<int, kI...>) {
+  (copy16<kI * 512>(dst, src), ...);
+}
+
+// The calling warp starts the copy of slot p's key rows of digit
+// polynomials [kG0, kG0 + kGn) (all of them but in K8's halves) from the
+// step's rows into arow, 16 bytes a lane a cp.async, lane i the pieces i,
+// i + 32, ..., as one commit group; wait_rows ends it.
 template <int M, int D, bool kRounded, int kG0 = 0, int kGn = M * D>
-__device__ __forceinline__ void key_rows(int p,
-                                         const long long* __restrict__ key_row,
-                                         uint32_t* arow) {
-  using S = Shape<M, D>;
-  constexpr int kRows = kRounded ? 4 : 6;    // limb rows a (g, o)
+__device__ __forceinline__ void fetch_rows(int p,
+                                           const int8_t* __restrict__ rows,
+                                           uint32_t* arow) {
+  using K = KeyRows<M, D, kRounded>;
+  constexpr int kPieces = kGn * M * K::kRows * 4;   // 16 bytes each
   const int lane = threadIdx.x & 31;
-  const int t = rev6(p);
-  uint8_t* rb = reinterpret_cast<uint8_t*>(arow);
-#pragma unroll
-  for (int go = 0; go < kGn * M; ++go) {
-    const size_t idx = ((size_t)(kG0 * M + go) * kL + t) * kR + lane;
-    uint32_t l0[kRows], l1[kRows];
-    if constexpr (kRounded) {
-      split_rounded(__ldg(key_row + idx), l0);
-      split_rounded(__ldg(key_row + S::kSide + idx), l1);
-    } else {
-      const long long v = __ldg(key_row + idx);
-      split_exact(v, l0);
-      split_exact(-v, l1);      // side 1: -v mod 2^38
-    }
-#pragma unroll
-    for (int L = 0; L < kRows; ++L) {
-      uint8_t* row = rb + (go * kRows + L) * 64;
-      row[31 - lane] = (uint8_t)l0[L];
-      row[63 - lane] = (uint8_t)l1[L];
-    }
-  }
+  const int8_t* src = rows + (size_t)p * K::kSlotBytes +
+                      kG0 * M * K::kRows * 64 + 16 * lane;
+  const uint32_t dst =
+      (uint32_t)__cvta_generic_to_shared(arow) + 16 * lane;
+  copy16s(dst, src, std::make_integer_sequence<int, kPieces / 32>());
+  if (kPieces % 32 && lane < kPieces % 32)
+    copy16<kPieces / 32 * 512>(dst, src);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The warp's copies have landed in shared memory, for every lane
+__device__ __forceinline__ void wait_rows() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
 }
 
 // The output group in which key limb row L meets digit limb i (the table
@@ -197,8 +219,9 @@ __host__ __device__ constexpr int mac_group(bool rounded, int L, int i) {
 // and the hi channel of (sample, o) pairs s*M + o < kS*M/2 over its
 // consumed limbs, the other pairs to hi_x (the second half of the slot's
 // limbs is still being written); half 1 adds into both and leaves the hi
-// channel where K1 leaves it.  build_rows false: the warp's key rows are
-// already in arow (K6's key-split stand-in).  kQ > 1 (K10's pipelines): the
+// channel where K1 leaves it.  fetch false: the copy of the slot's key
+// rows into arow is already issued (fetch_rows), or the rows are there
+// (K6's "no key split").  kQ > 1 (K10's pipelines): the
 // limbs lie sample-major ([sample][g][limb][32 bytes], so that a sample's
 // hi channel lies over its own limbs) and the MAC is that of sub-batch q,
 // the samples [q*kS/kQ, (q+1)*kS/kQ), the other columns zero and not
@@ -208,9 +231,8 @@ __host__ __device__ constexpr int mac_group(bool rounded, int L, int i) {
 template <int M, int D, bool kRounded, int kHalf = -1, int kQ = 1,
           bool kPartial = false>
 __device__ __forceinline__ void mac_slot(
-    int p, const long long* __restrict__ key_row, uint32_t* arow,
-    uint32_t* work, uint32_t* limbs, bool build_rows = true,
-    uint32_t* hi_x = nullptr, int q = 0) {
+    int p, const int8_t* __restrict__ rows, uint32_t* arow, uint32_t* work,
+    uint32_t* limbs, bool fetch = true, uint32_t* hi_x = nullptr, int q = 0) {
   using S = Shape<M, D>;
   constexpr int kGn = kHalf < 0 ? S::kG : S::kG / 2;
   constexpr int kG0 = kHalf < 0 ? 0 : kHalf * kGn;
@@ -223,7 +245,7 @@ __device__ __forceinline__ void mac_slot(
   const int tig = lane & 3;
   const int n0 = q * kSub;
 
-  if (build_rows) key_rows<M, D, kRounded, kG0, kGn>(p, key_row, arow);
+  if (fetch) fetch_rows<M, D, kRounded, kG0, kGn>(p, rows, arow);
 
   // B fragments: column gid, limb gid & 1 of sample gid >> 1 of digit
   // polynomial kG0 + g, bytes 4tig..4tig+3 and 16+4tig..+3
@@ -239,7 +261,7 @@ __device__ __forceinline__ void mac_slot(
     bf[g][0] = mine ? wb[tig] : 0u;
     bf[g][1] = mine ? wb[tig + 4] : 0u;
   }
-  __syncwarp();   // the rows are written; the limbs are read (hi goes there)
+  wait_rows();    // the rows are in arow; the limbs are read (hi goes there)
 
   // M tiles: the odd outputs k (tile 0: row gid is k = 4gid + 3, row
   // gid + 8 is k = 4gid + 1) and the even ones (tile 1: 4gid + 2, 4gid).
@@ -389,9 +411,9 @@ enum Variant : int {
   kNoDecomp = 6,       // every digit (v & base_mask) - half
   kNoInverse = 7,      // the channels folded into acc: slot p' + slot
                        // p' + 32 (lo, and hi exact) at q-layout p'*32 + k
-  kNoKeySplit = 8,     // key_rows once, for the warp's first slot at the
-                       // launch's first step; every slot p then reads the
-                       // rows of slot p % warps
+  kNoKeySplit = 8,     // the key rows copied once, the warp's first slot's
+                       // at the launch's first step; every slot p then
+                       // reads the rows of slot p % warps
   kSplitHalves = 9,    // K8: forward g < G/2; its MAC beside the forward of
                        // g >= G/2; their MAC; the inverse
   // K10 (step_schedules.cu, K1 at (2, 2)), each bit-equal to K1:
@@ -474,18 +496,18 @@ __host__ __device__ constexpr bool plain_forward(int v) {
          v == kSeparateAdd || v == kStagedInverse;
 }
 
-// kDecFwdKey's stand-in for the MAC of slot p: the slot's key rows
-// (key_rows), then one read of each row word and of the slot's digit
-// limbs; the lo channel of every (sample, o) gets the sum.
+// kDecFwdKey's stand-in for the MAC of slot p: the copy of the slot's
+// key rows (fetch_rows), then one read of each row word and of the slot's
+// digit limbs; the lo channel of every (sample, o) gets the sum.
 template <int M, int D, bool kRounded = false>
 __device__ __forceinline__ void key_slot(int p,
-                                         const long long* __restrict__ key_row,
+                                         const int8_t* __restrict__ rows,
                                          uint32_t* arow, uint32_t* work,
                                          const uint32_t* limbs) {
   using S = Shape<M, D>;
   const int lane = threadIdx.x & 31;
-  key_rows<M, D, kRounded>(p, key_row, arow);
-  __syncwarp();
+  fetch_rows<M, D, kRounded>(p, rows, arow);
+  wait_rows();
   uint32_t ksum = 0;
 #pragma unroll
   for (int r = 0; r < S::kG * M * (kRounded ? 4 : 6); ++r)
@@ -572,7 +594,7 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
 template <int M, int D>
 __device__ __forceinline__ void split_halves(
     const uint32_t* acc_s, const int32_t* __restrict__ p_row, int ns,
-    const long long* __restrict__ key_row, uint32_t* arow, uint32_t* work,
+    const int8_t* __restrict__ rows, uint32_t* arow, uint32_t* work,
     uint32_t* limbs, uint32_t* hi_x, uint32_t offset, int log2_base,
     int base_mask, int half) {
   using S = Shape<M, D>;
@@ -604,11 +626,11 @@ __device__ __forceinline__ void split_halves(
   } else {
     bar_sync(1, S::kThreads);
     for (int p = warp - kFwd; p < kL; p += kFwd)
-      mac_slot<M, D, false, 0>(p, key_row, arow, work, limbs, true, hi_x);
+      mac_slot<M, D, false, 0>(p, rows, arow, work, limbs, true, hi_x);
   }
   __syncthreads();
   for (int p = warp; p < kL; p += S::kWarps)
-    mac_slot<M, D, false, 1>(p, key_row, arow, work, limbs, true, hi_x);
+    mac_slot<M, D, false, 1>(p, rows, arow, work, limbs, true, hi_x);
   __syncthreads();
 }
 
@@ -670,7 +692,8 @@ __device__ __forceinline__ void staged_dft(const Rows& rows, int n_polys) {
 // block j lane i at pi*1024 + j*32 + i) into the padded int16 rows (in the
 // lo channel's place, pi*2048 + row*32 + lane; v1 and t6's warps store
 // those rows themselves), the forward's staged passes, and the limb split
-// into K3's slot layout.
+// into K3's slot layout, ended by a block barrier: the MAC reads every
+// sample's limbs and writes the lo channel over the rows.
 template <int M, int D, int V>
 __device__ __forceinline__ void staged_forward(uint32_t* work,
                                                uint32_t* limbs) {
@@ -701,6 +724,7 @@ __device__ __forceinline__ void staged_forward(uint32_t* work,
     reg[0] = (uint8_t)limb0(x);
     reg[S::kS * 32] = (uint8_t)limb1(x);
   }
+  __syncthreads();   // every limb written and every row read before a MAC
 }
 
 // v0 and v1/t6's digit warp (sample s, digit polynomial g; pi = s*G + g):
@@ -864,7 +888,7 @@ __device__ __forceinline__ void back_samples(int q, uint32_t* acc_s,
 template <int M, int D, bool kRounded, int kQ, bool kDotsEarly>
 __device__ __forceinline__ void sample_pipeline(
     uint32_t* acc_s, const int32_t* __restrict__ p_row, int ns,
-    const long long* __restrict__ key_row, uint32_t* arow, uint32_t* work,
+    const int8_t* __restrict__ rows, uint32_t* arow, uint32_t* work,
     uint32_t* limbs, uint32_t offset, int log2_base, int base_mask,
     int half) {
   using S = Shape<M, D>;
@@ -909,7 +933,7 @@ __device__ __forceinline__ void sample_pipeline(
     for (int q = 0; q < kQ; ++q) {
       bar_sync(1 + q, S::kThreads);
       for (int p = warp - kFront; p < kL; p += kMac)
-        mac_slot<M, D, kRounded, -1, kQ>(p, key_row, arow, work, limbs, true,
+        mac_slot<M, D, kRounded, -1, kQ>(p, rows, arow, work, limbs, true,
                                          nullptr, q);
       if constexpr (!kDotsEarly) bar_arrive(1 + kQ + q, S::kThreads);
     }
@@ -922,7 +946,7 @@ __global__ void __launch_bounds__(Shape<M, D>::kThreads, 1)
 blind_rotate_kernel(const int32_t* __restrict__ acc_in,
                     int32_t* __restrict__ acc_out,
                     const int32_t* __restrict__ bara_t,
-                    const long long* __restrict__ key, int batch, int start,
+                    const int8_t* __restrict__ rows, int batch, int start,
                     int chunk, uint32_t offset, int log2_base) {
   using S = Shape<M, D>;
   using O = PartOut<kPart, M, D>;
@@ -936,7 +960,10 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
   constexpr int kWarps = S::kWarps;
   constexpr int kThreads = S::kThreads;
   constexpr int kAccWords = S::kAccWords;
-  constexpr int kKeyRow = kRounded ? 2 * S::kSide : S::kSide;  // a step
+  // the MAC loop of phase 4 (K1, K3 and the variants that keep it)
+  constexpr bool kMacLoop =
+      kVariant != kSplitHalves && pipe_parts(kVariant) == 1 &&
+      (kStage == kDecFwdMac || kPart == kDecFwdMacInv || kPart == kFull);
   constexpr int kChanRoles = (kRounded ? 1 : 2) * kS * M;
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* acc_s = smem;                        // [kS][M][1024] q-layout
@@ -967,13 +994,20 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
   const int lane = tid & 31;
   for (int st = 0; st < chunk; ++st) {
     const size_t step = (size_t)(start + st);
-    const long long* key_row = key + step * kKeyRow;
+    const int8_t* step_rows =
+        rows + (size_t)st * KeyRows<M, D, kRounded>::kStepBytes;
 
     if constexpr (kPart == kNoop || kVariant == kNoopStep) {
       for (int e = tid; e < kS * kAccWords; e += kThreads) acc_s[e] += 1u;
       __syncthreads();
       continue;
     }
+
+    // the key rows of the warp's first slot come in while phases 1-3 run
+    // (arow is the MAC's alone)
+    if constexpr (kMacLoop)
+      if (kVariant != kNoKeySplit || st == 0)
+        fetch_rows<M, D, kRounded>(warp, step_rows, arow);
 
     // 1-3. a warp a (sample, digit polynomial g = o*D + d): rotation,
     // digit and forward transform in registers, the split into int8 limbs
@@ -1055,24 +1089,23 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
     // in the split schedule; K10's pipelines: phases 1-4, and 5-6 but in
     // p2b)
     if constexpr (kVariant == kSplitHalves) {
-      split_halves<M, D>(acc_s, bara_t + step * batch + b0, ns, key_row,
+      split_halves<M, D>(acc_s, bara_t + step * batch + b0, ns, step_rows,
                          arow, work, limbs, hi_x, offset, log2_base,
                          base_mask, half);
     } else if constexpr (pipe_parts(kVariant) > 1) {
       sample_pipeline<M, D, kRounded, pipe_parts(kVariant),
                       kVariant == kPipe2Dots>(
-          acc_s, bara_t + step * batch + b0, ns, key_row, arow, work, limbs,
+          acc_s, bara_t + step * batch + b0, ns, step_rows, arow, work, limbs,
           offset, log2_base, base_mask, half);
     } else if constexpr (kStage == kDecFwdKey) {
       for (int p = warp; p < kL; p += kWarps)
-        key_slot<M, D, kRounded>(p, key_row, arow, work, limbs);
+        key_slot<M, D, kRounded>(p, step_rows, arow, work, limbs);
       __syncthreads();
-    } else if constexpr (kStage == kDecFwdMac || kPart == kDecFwdMacInv ||
-                         kPart == kFull) {
+    } else if constexpr (kMacLoop) {
       for (int p = warp; p < kL; p += kWarps)
         mac_slot<M, D, kRounded, -1, 1, kVariant == kUnfusedCombine>(
-            p, key_row, arow, work, limbs,
-            kVariant != kNoKeySplit || (st == 0 && p == warp));
+            p, step_rows, arow, work, limbs,
+            kVariant != kNoKeySplit && p != warp);
       __syncthreads();
       if constexpr (kVariant == kUnfusedCombine) {
         combine_pass<M, D, kRounded>(work, limbs);
@@ -1203,7 +1236,7 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
 
 template <int M, int D, bool kRounded, int kPart = kFull, int kVariant = kAsIs>
 cudaError_t launch(const int32_t* acc_in, int32_t* acc_out,
-                   const int32_t* bara_t, const long long* key, int batch,
+                   const int32_t* bara_t, const int8_t* rows, int batch,
                    int start, int chunk, uint32_t offset, int log2_base,
                    cudaStream_t stream) {
   using S = Shape<M, D>;
@@ -1218,28 +1251,29 @@ cudaError_t launch(const int32_t* acc_in, int32_t* acc_out,
   if (err != cudaSuccess) return err;
   blind_rotate_kernel<M, D, kRounded, kPart, kVariant>
       <<<(batch + S::kS - 1) / S::kS, S::kThreads, smem, stream>>>(
-          acc_in, acc_out, bara_t, key, batch, start, chunk, offset,
+          acc_in, acc_out, bara_t, rows, batch, start, chunk, offset,
           log2_base);
   return cudaGetLastError();
 }
 
 template <int M, int D>
 cudaError_t launch_form(const int32_t* acc_in, int32_t* acc_out,
-                        const int32_t* bara_t, const long long* key,
+                        const int32_t* bara_t, const int8_t* rows,
                         int batch, int start, int chunk, uint32_t offset,
                         int log2_base, int rounded, cudaStream_t stream) {
-  return rounded ? launch<M, D, true>(acc_in, acc_out, bara_t, key, batch,
+  return rounded ? launch<M, D, true>(acc_in, acc_out, bara_t, rows, batch,
                                       start, chunk, offset, log2_base, stream)
-                 : launch<M, D, false>(acc_in, acc_out, bara_t, key, batch,
+                 : launch<M, D, false>(acc_in, acc_out, bara_t, rows, batch,
                                        start, chunk, offset, log2_base,
                                        stream);
 }
 
-// Steps [start, start + chunk) on the device ordinal `device`; returns the
-// CUDA error code (cudaErrorInvalidValue for a (mask1, decomp) pair that is
-// not instantiated).
+// Steps [start, start + chunk) on the device ordinal `device`, `rows` the
+// key rows of those steps; returns the CUDA error code
+// (cudaErrorInvalidValue for a (mask1, decomp) pair that is not
+// instantiated).
 inline int blind_rotate_launch_any(const void* acc_in, void* acc_out,
-                                   const void* bara_t, const void* key,
+                                   const void* bara_t, const void* rows,
                                    int batch, int start, int chunk, int mask1,
                                    int decomp, unsigned int offset,
                                    int log2_base, int rounded, int device,
@@ -1250,7 +1284,7 @@ inline int blind_rotate_launch_any(const void* acc_in, void* acc_out,
   const auto* in = (const int32_t*)acc_in;
   auto* out = (int32_t*)acc_out;
   const auto* bt = (const int32_t*)bara_t;
-  const auto* k = (const long long*)key;
+  const auto* k = (const int8_t*)rows;
   const auto s = (cudaStream_t)stream;
   if (mask1 == 2 && decomp == 2)
     err = launch_form<2, 2>(in, out, bt, k, batch, start, chunk, offset,

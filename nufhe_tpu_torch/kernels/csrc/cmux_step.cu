@@ -11,19 +11,19 @@
 // Layout:
 //   acc    (B, Mask1, 1024) int32, batch-major, contiguous
 //   p      (B,) int32 in [0, 2048)
-//   key    one row: (G, Mask1, 64, 32) int64 exact, (2, G, Mask1, 64, 32)
-//          rounded
+//   key    the int8 limb rows of one step (ops/key_rows.py): (64, G, Mask1,
+//          6, 64) exact, (64, G, Mask1, 4, 64) rounded
 //   out    (B, Mask1, 1024) int32
 //
 // Design: the chunked rotation's kernel (blind_rotate_body.cuh) with a
-// chunk of one step that reads this one key row: the powers are its one
+// chunk of one step that reads one step's key rows: the powers are its one
 // row of rotation amounts.  So K1 runs K3's step, with its MAC on the int8
 // tensor cores, and the two cannot drift apart; the accumulator goes
 // through device memory once a step.
 //
 // Bound: the MAC's int8 multiply-adds, 64 * 64G * Q a sample (5.24 M exact
 // at (2, 2)), 0.087 ms at batch 2^14 at the dense int8 rate of 1979e12/s;
-// the bytes (accumulator in and out, the powers and the key row, 131 KB
+// the bytes (accumulator in and out, the powers and the key rows, 196 KB
 // exact) take 0.040 ms.
 
 #include "blind_rotate_body.cuh"

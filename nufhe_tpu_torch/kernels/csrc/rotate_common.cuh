@@ -12,7 +12,6 @@
 //     (forward_digits);
 //   - the split of a transformed digit (|x| <= 32 * 2^(log2_base-1) = 2^14)
 //     into int8 limbs a0 + 256 a1;
-//   - the key residue's two-sided int8 limbs (split_exact, split_rounded);
 //   - mma.sync m16n8k32 s8 x s8 -> s32;
 //   - the unscaled inverse transform and the fold of one channel polynomial
 //     in a warp's registers (inverse_fold).
@@ -54,34 +53,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// The 4 balanced radix-2^8 digits of y mod 2^32 (each in [-128, 128)),
-// as the bytes of one word: y + 0x80808080 has the bytes d + 128 and no
-// carries.
-__device__ __forceinline__ uint32_t radix256(uint32_t y) {
-  return (y + 0x80808080u) ^ 0x80808080u;
-}
-
-// ops/transform._limb_split_38 of a residue mod 2^38, given as any int64
-// representative (the limbs depend on it mod 2^38 only), in the low bytes
-// of l: exact [vlo, vhi_0..3, 4*vlo], vlo = balanced(x mod 64) and vhi =
-// (x - vlo) / 64 mod 2^32
-__device__ __forceinline__ void split_exact(long long x, uint32_t (&l)[6]) {
-  const int vlo = (((int)(uint32_t)x + 32) & 63) - 32;
-  const uint32_t hi =
-      radix256((uint32_t)((unsigned long long)(x - vlo) >> 6));
-  l[0] = (uint32_t)vlo;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) l[1 + q] = hi >> (8 * q);
-  l[5] = (uint32_t)(4 * vlo);
-}
-
-// rounded: vhi_0..3 of round(x / 64) = (x + 32) >> 6, mod 2^32
-__device__ __forceinline__ void split_rounded(long long x, uint32_t (&l)[4]) {
-  const uint32_t hi = radix256((uint32_t)((unsigned long long)(x + 32) >> 6));
-#pragma unroll
-  for (int q = 0; q < 4; ++q) l[q] = hi >> (8 * q);
 }
 
 // The int8 limbs of a transformed digit: x = a0 + 256 a1

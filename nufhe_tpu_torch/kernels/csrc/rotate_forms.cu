@@ -39,7 +39,7 @@ int launch_variant(const void* acc_in, void* acc_out, const void* bara_t,
                    unsigned int offset, int log2_base, void* stream) {
   return (int)launch<2, 2, kRounded, kFull, V>(
       (const int32_t*)acc_in, (int32_t*)acc_out, (const int32_t*)bara_t,
-      (const long long*)key, batch, start, chunk, offset, log2_base,
+      (const int8_t*)key, batch, start, chunk, offset, log2_base,
       (cudaStream_t)stream);
 }
 

@@ -24,13 +24,15 @@
 //                     decomposition; "pack" is the TPU's name for it)
 //   7 "no inverse"    the channels folded into acc (slot p' + slot p' + 32
 //                     of lo, and of hi exact, at q-layout p'*32 + k)
-//   8 "no key split"  the card's on-chip split of the int64 key into int8
-//                     rows, done once: each warp's rows of its first slot
-//                     at the launch's first step serve every slot p (the
-//                     rows of slot p % 16) and step
+//   8 "no key split"  the copy of the key's int8 rows into shared memory,
+//                     done once: each warp's rows of its first slot at the
+//                     launch's first step serve every slot p (the rows of
+//                     slot p % 16) and step; FULL less it is the copy's
+//                     cost in the loop
 //
-// Layout: K3's (acc (B, 2, 1024) int32, bara_t (n, B) int32, key (n, 4, 2,
-// 64, 32) int64 exact or (n, 2, 4, 2, 64, 32) rounded); ops/step_context's
+// Layout: K3's (acc (B, 2, 1024) int32, bara_t (n, B) int32, key the int8
+// limb rows of the launch's steps, (chunk, 64, 4, 2, 6, 64) exact or
+// (chunk, 64, 4, 2, 4, 64) rounded, ops/key_rows.py); ops/step_context's
 // step_context_plain states every variant in ops/flat_engine's stages.
 // Shared memory, block shape and occupancy are K3's.
 //
@@ -48,7 +50,7 @@ int launch_variant(const void* acc_in, void* acc_out, const void* bara_t,
                    unsigned int offset, int log2_base, void* stream) {
   return (int)launch<2, 2, kRounded, kFull, V>(
       (const int32_t*)acc_in, (int32_t*)acc_out, (const int32_t*)bara_t,
-      (const long long*)key, batch, start, chunk, offset, log2_base,
+      (const int8_t*)key, batch, start, chunk, offset, log2_base,
       (cudaStream_t)stream);
 }
 

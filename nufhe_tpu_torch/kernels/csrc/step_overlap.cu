@@ -22,7 +22,8 @@
 // warps, one block an SM.
 //
 // Layout: K1's exact form (acc (B, 2, 1024) int32, p (B,) int32, key_row
-// (4, 2, 64, 32) int64, out (B, 2, 1024) int32).
+// the int8 limb rows (64, 4, 2, 6, 64) of one step, ops/key_rows.py, out
+// (B, 2, 1024) int32).
 //
 // Bound: as K1, the MAC's int8 multiply-adds, 0.0868 ms at batch 2^14.
 
@@ -37,6 +38,6 @@ extern "C" int step_overlap_launch(const void* acc_in, void* acc_out,
   if (batch <= 0) return (int)cudaGetLastError();
   return (int)launch<2, 2, false, kFull, kSplitHalves>(
       (const int32_t*)acc_in, (int32_t*)acc_out, (const int32_t*)powers,
-      (const long long*)key_row, batch, 0, 1, offset, log2_base,
+      (const int8_t*)key_row, batch, 0, 1, offset, log2_base,
       (cudaStream_t)stream);
 }

@@ -16,8 +16,8 @@
 //   2 "dec+fwd"          the digits of acc (no rotation), the forward
 //                        transform, folded                  (B, 2, 1024)
 //   3 "dec+fwd+key"      2 with the limb split, then each slot's key
-//                        rows built on chip (the MAC's A operand) and
-//                        read once instead of the MAC, folded
+//                        rows copied in (the MAC's A operand) and read
+//                        once instead of the MAC, folded
 //   4 "dec+fwd+mac"      2 with the limb split and the MAC: both channels
 //                        before the inverse, folded
 //   5 "inverse only"     the inverse, fold and normalisation of a stand-in
@@ -36,14 +36,15 @@
 // part in ops/flat_engine's stage functions.
 //
 // Layout: acc (B, 2, 1024) int32, p (B,) int32 in [0, 2048), key_row
-// (4, 2, 64, 32) int64 (one row of ops/transform's exact key), out as
-// above, coefficient order.  Shared memory, block shape and occupancy are
-// K1's (208 KB, 4 samples and 16 warps a block, one block an SM), so a
-// part's time is the time of its stages inside the real step.
+// the int8 limb rows (64, 4, 2, 6, 64) of one step of ops/transform's
+// exact key (ops/key_rows.py), out as above, coefficient order.  Shared
+// memory, block shape and occupancy are K1's (208 KB, 4 samples and 16
+// warps a block, one block an SM), so a part's time is the time of its
+// stages inside the real step.
 //
 // Bound: as K1 for the full step (the MAC's int8 multiply-adds, 0.087 ms
 // at batch 2^14); a part's own bound is its bytes (acc in, its output out,
-// the key row) and, from part 4 on, the MAC's operations.
+// the key rows) and, from part 4 on, the MAC's operations.
 
 #include "blind_rotate_body.cuh"
 
@@ -55,7 +56,7 @@ int launch_part(const void* acc_in, void* out, const void* powers,
                 int log2_base, void* stream) {
   return (int)launch<2, 2, false, P>(
       (const int32_t*)acc_in, (int32_t*)out, (const int32_t*)powers,
-      (const long long*)key_row, batch, 0, 1, offset, log2_base,
+      (const int8_t*)key_row, batch, 0, 1, offset, log2_base,
       (cudaStream_t)stream);
 }
 

@@ -20,8 +20,8 @@
 //                                                               (B, 4, 1024)
 //   6 "+forward (fold glue)" K5's "dec+fwd" on the rotation's digits
 //   7 "+lhs (sum glue 8x)"   K5's "dec+fwd+key" on them: the limb split and
-//                            the key's on-chip split into int8 rows (the
-//                            card's MAC operands)
+//                            the copy of the key's int8 rows (the card's
+//                            MAC operands)
 //   8 "+mac dot (sum glue)"  K5's "dec+fwd+mac" on them (rounded key: the lo
 //                            channel only)
 //   9 "FULL step"            the CMUX step (K1)
@@ -32,7 +32,7 @@
 // shape and occupancy are K1's.
 //
 // Bound: a part's bytes (acc in, its output out, the powers where it
-// rotates, the key row where it reads it) and, for 8 and 9, the MAC's int8
+// rotates, the key rows where it reads them) and, for 8 and 9, the MAC's int8
 // operations (0.0868 ms exact, 0.0694 rounded, at batch 2^14).
 
 #include "blind_rotate_body.cuh"
@@ -45,7 +45,7 @@ int launch_part(const void* acc_in, void* out, const void* powers,
                 int log2_base, void* stream) {
   return (int)launch<2, 2, kRounded, P>(
       (const int32_t*)acc_in, (int32_t*)out, (const int32_t*)powers,
-      (const long long*)key_row, batch, 0, 1, offset, log2_base,
+      (const int8_t*)key_row, batch, 0, 1, offset, log2_base,
       (cudaStream_t)stream);
 }
 

@@ -31,10 +31,11 @@
 // The pipelines split the samples, not the digit polynomials (K8's split
 // of the digit halves was 23% slower than K1): a sub-batch's MAC fills
 // 2kS/kQ of the mma's 8 columns (both digit limbs of its samples) and
-// builds every slot's key rows again, which is what their reading prices.
+// copies every slot's key rows again, which is what their reading prices.
 //
-// Layout: K1's (acc (B, 2, 1024) int32, p (B,) int32, key_row (4, 2, 64, 32)
-// int64 exact or (2, 4, 2, 64, 32) rounded, out (B, 2, 1024) int32).
+// Layout: K1's (acc (B, 2, 1024) int32, p (B,) int32, key_row the int8
+// limb rows of one step, (64, 4, 2, 6, 64) exact or (64, 4, 2, 4, 64)
+// rounded (ops/key_rows.py), out (B, 2, 1024) int32).
 // Shared memory and block shape are K1's (208 KB exact, 192 KB rounded,
 // 512 threads, one block an SM): the staged passes use the lo channel's
 // and the limbs' places, the pipelines keep each sample's hi channel over
@@ -53,7 +54,7 @@ int launch_schedule(const void* acc_in, void* acc_out, const void* powers,
                     int log2_base, void* stream) {
   return (int)launch<2, 2, kRounded, kFull, V>(
       (const int32_t*)acc_in, (int32_t*)acc_out, (const int32_t*)powers,
-      (const long long*)key_row, batch, 0, 1, offset, log2_base,
+      (const int8_t*)key_row, batch, 0, 1, offset, log2_base,
       (cudaStream_t)stream);
 }
 

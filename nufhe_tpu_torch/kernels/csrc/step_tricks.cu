@@ -32,8 +32,9 @@
 //              registers j < p mod 32, i-rounds as K12's t11, the bit-10
 //              sign folded into the -1 (barrel_rotate kRotDeferred)
 //
-// Layout: K3's (acc (B, 2, 1024) int32, bara_t (n, B) int32, key (n, 4, 2,
-// 64, 32) int64 exact or (n, 2, 4, 2, 64, 32) rounded).  Shared memory,
+// Layout: K3's (acc (B, 2, 1024) int32, bara_t (n, B) int32, key the int8
+// limb rows of the launch's steps, (chunk, 64, 4, 2, 6, 64) exact or
+// (chunk, 64, 4, 2, 4, 64) rounded, ops/key_rows.py).  Shared memory,
 // block shape and occupancy are K3's: the barrels' scratch (1 KB a digit
 // warp) and the staged passes use the lo channel's and the limbs' places.
 //
@@ -50,7 +51,7 @@ int launch_variant(const void* acc_in, void* acc_out, const void* bara_t,
                    unsigned int offset, int log2_base, void* stream) {
   return (int)launch<2, 2, kRounded, kFull, V>(
       (const int32_t*)acc_in, (int32_t*)acc_out, (const int32_t*)bara_t,
-      (const long long*)key, batch, start, chunk, offset, log2_base,
+      (const int8_t*)key, batch, start, chunk, offset, log2_base,
       (cudaStream_t)stream);
 }
 

@@ -22,7 +22,7 @@ from .params import LweParams, TLweParams, TGswParams, NuFHEParameters
 from .rng import rand_uniform_bool, rand_uniform_torus32, rand_gaussian_torus32
 from .ref import tlwe_ref, tgsw_ref, lwe_ref
 from .ops import lwe as dlwe
-from .ops import keygen, tgsw, transform
+from .ops import key_rows, keygen, tgsw, transform
 from . import serialization
 from .utils import to_device, to_numpy
 from .utils.profiling import annotate
@@ -153,6 +153,7 @@ class BootstrapKey:
         self._limbs = limbs
         self._compact = compact      # (pos_limbs, delta): the one-sided form
         self._device = {}
+        self._rows = {}
         self._mac_rhs = {}
         self._mac_rhs_host = None
 
@@ -244,7 +245,9 @@ class BootstrapKey:
         ``transform_type``'s, by the host transform; from the compact form
         (a tensor key, a format-4 container) the -v side and the key are
         derived on ``dev`` (``ops/transform.two_sided_limbs_device``,
-        ``rows_key_from_limbs``), equal to the transform of the same key."""
+        ``rows_key_from_limbs``), equal to the transform of the same key.
+        On a CUDA device the key's int8 limb rows, which K1 and K3 read,
+        are prepared with it (:meth:`rows`)."""
         dev = torch.device(dev)
         if dev not in self._device:
             with annotate("nufhe.keys.prepare"):
@@ -256,8 +259,18 @@ class BootstrapKey:
                         self.bk_coeff, dev, self.accum_params.transform_type)
                 else:
                     key = transform.rows_key_from_limbs(self.limbs(), dev)
+                self._rows[dev] = key_rows.prepare(key, key.dim() == 6)
             self._device[dev] = key
         return self._device[dev]
+
+    def rows(self, dev):
+        """The rows engine's key limb rows on ``dev`` (cached, prepared by
+        :meth:`device`): (n, L, G, O, 6, 64) int8 exact, (n, L, G, O, 4,
+        64) rounded (``ops/key_rows``); None off CUDA, where the rotation
+        runs the plain steps on the int64 key."""
+        dev = torch.device(dev)
+        self.device(dev)
+        return self._rows[dev]
 
     def mac_rhs(self, dev):
         """The lanes engine's key on ``dev`` (cached): the TPU's MAC

@@ -89,9 +89,12 @@ def _perf_kwargs(perf_params, device):
 
 
 def _bootstrap_key(cloud_key, device, lanes):
-    """The bootstrap key in the engine's form on ``device``."""
+    """The bootstrap key in the engine's form on ``device``, and the rows
+    engine's prepared key rows (None for the lanes engine)."""
     bk = cloud_key.bootstrap_key
-    return bk.mac_rhs(device) if lanes else bk.device(device)
+    if lanes:
+        return bk.mac_rhs(device), None
+    return bk.device(device), bk.rows(device)
 
 
 def _linear(inputs, const, coeffs):
@@ -127,9 +130,10 @@ def _bootstrap_gate(cloud_key, result, sources, const, coeffs, device,
         ta, tb = _linear(inputs, const, coeffs)
     ks_arrays, ks_meta = cloud_key.keyswitch_key.device(device)
     perf = _perf_kwargs(perf_params, device)
-    bk_dev = _bootstrap_key(cloud_key, device, perf.pop("lanes"))
+    bk_dev, bk_rows = _bootstrap_key(cloud_key, device, perf.pop("lanes"))
     ra, rb, rcv = dboot.bootstrap_device(
-        ta, tb, bk_dev, ks_arrays, ks_meta, _MU, params.tgsw_params, **perf)
+        ta, tb, bk_dev, ks_arrays, ks_meta, _MU, params.tgsw_params,
+        bk_rows=bk_rows, **perf)
     return _store(result, shape, ra, rb, rcv)
 
 
@@ -239,10 +243,10 @@ def gate_mux(cloud_key, result, a, b, c, device, perf_params=None):
                                     and_const - _i64(ab) + _i64(cb)]))
     ks_arrays, ks_meta = cloud_key.keyswitch_key.device(device)
     perf = _perf_kwargs(perf_params, device)
-    bk_dev = _bootstrap_key(cloud_key, device, perf.pop("lanes"))
+    bk_dev, bk_rows = _bootstrap_key(cloud_key, device, perf.pop("lanes"))
     ex_a, ex_b, ex_cv = dboot.bootstrap_device(
         lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, _MU, params.tgsw_params,
-        no_keyswitch=True, **perf)
+        no_keyswitch=True, bk_rows=bk_rows, **perf)
     ta = wrap_i32(_i64(ex_a[:bsz]) + _i64(ex_a[bsz:]))
     tb = wrap_i32(mux_const + _i64(ex_b[:bsz]) + _i64(ex_b[bsz:]))
     ra, rb, rcv = dlwe.lwe_keyswitch(ks_arrays, ks_meta, ta, tb,

@@ -10,12 +10,15 @@ port's layout:
 - ``acc``: (B, mask1, N) int32;
 - ``bara_t``: (n, B) int32 in [0, 2N), one row of rotation amounts a step;
 - ``key``: the whole transformed key of ``ops/transform``, int64:
-  (n, G, O, L, R) exact or (n, 2, G, O, L, R) rounded.
+  (n, G, O, L, R) exact or (n, 2, G, O, L, R) rounded;
+- ``rows``: the key's int8 limb rows (``ops/key_rows``), prepared with the
+  key, which the kernel copies into shared memory a slot at a time.
 """
 
 import torch
 
 from . import cmux
+from . import key_rows as kr
 
 # launches of the CUDA kernel (not of the plain version), and the CMUX
 # steps those launches ran
@@ -33,10 +36,12 @@ def blind_rotate_chunk_plain(acc, bara_t, key, start, chunk, *, offset,
     return acc
 
 
-def blind_rotate_chunk(acc, bara_t, key, start, chunk, *, offset, log2_base):
+def blind_rotate_chunk(acc, bara_t, key, start, chunk, *, offset, log2_base,
+                       rows=None):
     """K3: steps [start, start + chunk) of the blind rotation.  A CUDA
-    tensor runs the kernel; a CPU tensor the plain version.  Returns a new
-    tensor (``acc`` is not updated in place)."""
+    tensor runs the kernel on ``rows``, the key's prepared rows (required
+    there); a CPU tensor the plain version.
+    Returns a new tensor (``acc`` is not updated in place)."""
     global launches, steps
     mask1 = cmux.check_acc(acc, "blind_rotate_chunk")
     if bara_t.dtype != torch.int32:
@@ -64,12 +69,14 @@ def blind_rotate_chunk(acc, bara_t, key, start, chunk, *, offset, log2_base):
     if not 1 <= log2_base <= 16:
         raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
     _, decomp_length = cmux.kernel_shape(key, mask1, "blind_rotate_chunk")
+    rows = kr.launch_rows(key, rounded, rows, start, chunk,
+                          "blind_rotate_chunk")
     from ..kernels import build
     fn = build.entry("blind_rotate_chunk")
     out = torch.empty_like(acc)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), bara_t.data_ptr(), key.data_ptr(),
-              acc.shape[0], start, chunk, mask1, decomp_length,
+    code = fn(acc.data_ptr(), out.data_ptr(), bara_t.data_ptr(),
+              rows.data_ptr(), acc.shape[0], start, chunk, mask1, decomp_length,
               int(offset) & 0xFFFFFFFF, int(log2_base), int(rounded),
               acc.device.index, stream)
     build.check("blind_rotate_chunk", code)

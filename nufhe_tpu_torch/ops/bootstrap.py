@@ -64,7 +64,7 @@ def round_phase_coarse(bara, bits: int, n_poly: int):
 
 @spanned("nufhe.blind_rotate")
 def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
-                 exact=True, group=None, slot_group=None):
+                 exact=True, group=None, slot_group=None, bk_rows=None):
     """ACC <- BK_i (x) [(X^{bara_i}-1) ACC] + ACC over all n key bits.
 
     :param accum_a: (B, mask_size+1, N) int32.
@@ -81,6 +81,9 @@ def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
         step's channels are summed over the process group.
     :param slot_group: slots tensor parallelism: ``bk_dev`` is this rank's
         slot slice (n, L/size, C, Q); each step's channels are gathered.
+    :param bk_rows: the rows engine's prepared key rows (``ops/key_rows``,
+        ``BootstrapKey.rows``), which K1 and K3 read: required for the
+        rows key on CUDA.
     """
     n = bara.shape[-1]
     lanes_key = bk_dev.dtype == torch.int8
@@ -115,10 +118,12 @@ def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
     if chunk > 1:
         for start in range(0, n, chunk):
             acc = brc.blind_rotate_chunk(acc, bara_t, bk_dev, start,
-                                         min(chunk, n - start), **kw)
+                                         min(chunk, n - start),
+                                         rows=bk_rows, **kw)
     else:
         for i in range(n):
-            acc = cmux.cmux_step(acc, bara_t[i], bk_dev[i], **kw)
+            acc = cmux.cmux_step(acc, bara_t[i], bk_dev[i], **kw,
+                                 rows=None if bk_rows is None else bk_rows[i])
     return acc
 
 
@@ -146,12 +151,14 @@ def _blind_rotate_tp(accum_a, bk_shard, bara, tgsw_params, exact, group,
 @spanned("nufhe.bootstrap")
 def bootstrap_device(lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, mu,
                      tgsw_params, no_keyswitch=False, chunk_steps=1,
-                     coarse_phase_bits=0, group=None, slot_group=None):
+                     coarse_phase_bits=0, group=None, slot_group=None,
+                     bk_rows=None):
     """Full gate bootstrap: LWE(mu) if phase > 0 else LWE(-mu), fresh noise.
     Reference: ``nufhe/bootstrap.py:154-229``.  The engine mode comes from
     ``tgsw_params.tlwe_params.transform_type``, the engine (rows or lanes)
     from the key's form (:func:`blind_rotate`); ``group``/``slot_group``
-    split the lanes engine's steps over a process group (:func:`blind_rotate`).
+    split the lanes engine's steps over a process group, ``bk_rows`` are
+    the rows engine's prepared key rows (:func:`blind_rotate`).
 
     :param lwe_a: (B, n_in) int32; ``lwe_b``: (B,) int32.
     :returns: (a, b, cv) in the keyswitched (or extracted) LWE space.
@@ -176,7 +183,7 @@ def bootstrap_device(lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, mu,
         accum, _ = dtlwe.tlwe_noiseless_trivial(testvect, mask_size)
     accum = blind_rotate(accum, bk_dev, bara, tgsw_params,
                          chunk_steps=chunk_steps, exact=exact, group=group,
-                         slot_group=slot_group)
+                         slot_group=slot_group, bk_rows=bk_rows)
     with annotate("nufhe.extract"):
         ex_a, ex_b = dtlwe.tlwe_extract_lwe_samples(accum)
 

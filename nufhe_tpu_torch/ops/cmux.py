@@ -15,12 +15,14 @@ negacyclic in Z[X]/(N=1024), mod 2^32 — the function of the TPU kernel
   the terms that wrap around the negacyclic convolution.  The row's shape
   selects the form; the accumulator gives mask1 and the key G = mask1*l.
   The kernel is built for the (mask1, l) pairs of
-  ``ops/transform.KERNEL_SHAPES`` and raises on any other.
+  ``ops/transform.KERNEL_SHAPES`` and raises on any other.  It reads the
+  row's int8 limb rows (``ops/key_rows``), prepared with the key.
 """
 
 import torch
 
 from ..numeric import wrap_i32
+from . import key_rows as kr
 from . import transform as tf
 
 # launches of the CUDA kernel (not of the plain version)
@@ -117,9 +119,11 @@ def kernel_shape(key, mask1, name):
     return mask1, decomp_length
 
 
-def cmux_step(acc, p, key_row, *, offset, log2_base):
+def cmux_step(acc, p, key_row, *, offset, log2_base, rows=None):
     """K1: one CMUX step.  A CUDA tensor runs the kernel; a CPU tensor the
-    plain version.  Returns a new tensor."""
+    plain version.  Returns a new tensor.  ``rows``: the key row's
+    prepared rows (``ops/key_rows``), which the kernel reads: required on
+    CUDA."""
     global launches
     mask1 = check_acc(acc, "cmux_step")
     rounded = check_key(key_row, (), "cmux_step", mask1)
@@ -140,11 +144,12 @@ def cmux_step(acc, p, key_row, *, offset, log2_base):
     if not 1 <= log2_base <= 16:
         raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
     _, decomp_length = kernel_shape(key_row, mask1, "cmux_step")
+    rows = kr.launch_rows(key_row, rounded, rows, None, 1, "cmux_step")
     from ..kernels import build
     fn = build.entry("cmux_step")
     out = torch.empty_like(acc)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), key_row.data_ptr(),
+    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), rows.data_ptr(),
               acc.shape[0], mask1, decomp_length, int(offset) & 0xFFFFFFFF,
               int(log2_base), int(rounded), acc.device.index, stream)
     build.check("cmux_step", code)

@@ -99,10 +99,12 @@ def rotate_form_plain(form, acc, bara_t, key, start, chunk, *, offset,
                          log2_base=log2_base, rotate=barrel_rotate_q)
 
 
-def rotate_form(form, acc, bara_t, key, start, chunk, *, offset, log2_base):
+def rotate_form(form, acc, bara_t, key, start, chunk, *, offset, log2_base,
+                rows=None):
     """K12: steps [start, start + chunk) with the rotation in ``form``.  A
     CUDA tensor runs the kernel; a CPU tensor the plain version.  Returns a
-    new tensor."""
+    new tensor.  ``rows``: the key's prepared rows (``ops/key_rows``),
+    which the kernel reads: required on CUDA."""
     global launches
     if form not in FORMS:
         raise ValueError("unknown form %r; the forms are %s" % (form, FORMS))
@@ -113,6 +115,6 @@ def rotate_form(form, acc, bara_t, key, start, chunk, *, offset, log2_base):
                                  offset=offset, log2_base=log2_base)
     out = sc.launch_chunk("rotate_forms", FORMS.index(form), acc, bara_t, key,
                           start, chunk, rounded, offset=offset,
-                          log2_base=log2_base)
+                          log2_base=log2_base, rows=rows)
     launches += 1
     return out

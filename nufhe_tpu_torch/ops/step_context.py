@@ -7,9 +7,9 @@ stand-in, so that the full rotation's time minus a variant's is that
 stage's cost inside the loop): here each variant is K3's own kernel
 (``kernels/csrc/blind_rotate_body.cuh``) with its ``Variant`` template
 argument set, at the default shape (mask1, l) = (2, 2), in both key forms.
-The variants keep the JAX names, plus "no key split" for the card's
-on-chip split of the key into the MAC's int8 rows, a stage the TPU's step
-does not have.  A stand-in is wrong on purpose (timing only) but
+The variants keep the JAX names, plus "no key split" for the copy of the
+key's prepared int8 rows (``ops/key_rows``) into shared memory, a stage
+the TPU's step does not have.  A stand-in is wrong on purpose (timing only) but
 deterministic, so each variant is a function that the plain version states
 in ``ops/flat_engine``'s stage functions:
 
@@ -28,8 +28,9 @@ in ``ops/flat_engine``'s stage functions:
 - "no inverse": acc += slot p' + slot p' + 32 of the channels (lo, and hi
   in the exact form), at q-layout p'*32 + lane, mod 2^32;
 - "no key split": the MAC of slot p reads the key rows of slot p % 16 of
-  step ``start`` (the kernel's 16 warps each build the rows of their first
-  slot once, at the launch's first step).
+  step ``start`` (the kernel's 16 warps each copy the prepared rows of
+  their first slot into shared memory once, at the launch's first step),
+  so FULL less it is the cost of copying every slot's rows a step.
 
 In the port's layout: ``acc`` (B, 2, N) int32, ``bara_t`` (n, B) int32 in
 [0, 2N), ``key`` (n, 4, 2, L, R) int64 exact or (n, 2, 4, 2, L, R) rounded
@@ -41,6 +42,7 @@ import torch
 from ..numeric import wrap_i32
 from . import cmux
 from . import flat_engine as fe
+from . import key_rows as kr
 from . import step_parts as sp
 
 VARIANTS = ("FULL", "noop step", "dot only", "no rotation", "no forward",
@@ -167,10 +169,12 @@ def check_chunk(name, acc, bara_t, key, start, chunk):
 
 
 def launch_chunk(name, index, acc, bara_t, key, start, chunk, rounded, *,
-                 offset, log2_base):
-    """Launch kernel ``name`` (a K3-shaped launcher: acc, out, bara_t, key,
-    batch, start, chunk, index, offset, log2_base, rounded, device,
-    stream) on CUDA tensors; returns the output."""
+                 offset, log2_base, rows=None):
+    """Launch kernel ``name`` (a K3-shaped launcher: acc, out, bara_t, the
+    key rows of the launch's steps, batch, start, chunk, index, offset,
+    log2_base, rounded, device, stream) on CUDA tensors; returns the
+    output.  ``rows``: the key's prepared rows (``ops/key_rows``),
+    required."""
     if acc.device.type != 'cuda':
         raise ValueError("%s runs on CUDA or CPU, not %s" % (name, acc.device))
     if not (acc.is_contiguous() and bara_t.is_contiguous()
@@ -178,12 +182,13 @@ def launch_chunk(name, index, acc, bara_t, key, start, chunk, rounded, *,
         raise ValueError("%s takes contiguous tensors" % name)
     if not 1 <= log2_base <= 16:
         raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
+    rows = kr.launch_rows(key, rounded, rows, start, chunk, name)
     from ..kernels import build
     fn = build.entry(name)
     out = torch.empty_like(acc)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
     code = fn(acc.data_ptr(), out.data_ptr(), bara_t.data_ptr(),
-              key.data_ptr(), acc.shape[0], start, chunk, index,
+              rows.data_ptr(), acc.shape[0], start, chunk, index,
               int(offset) & 0xFFFFFFFF, int(log2_base), int(rounded),
               acc.device.index, stream)
     build.check(name, code)
@@ -191,9 +196,11 @@ def launch_chunk(name, index, acc, bara_t, key, start, chunk, rounded, *,
 
 
 def step_context(variant, acc, bara_t, key, start, chunk, *, offset,
-                 log2_base):
+                 log2_base, rows=None):
     """K6: steps [start, start + chunk) of ``variant``.  A CUDA tensor runs
-    the kernel; a CPU tensor the plain version.  Returns a new tensor."""
+    the kernel; a CPU tensor the plain version.  Returns a new tensor.
+    ``rows``: the key's prepared rows (``ops/key_rows``), which the kernel
+    reads: required on CUDA."""
     global launches
     if variant not in VARIANTS:
         raise ValueError("unknown variant %r; the variants are %s"
@@ -205,7 +212,7 @@ def step_context(variant, acc, bara_t, key, start, chunk, *, offset,
                                   offset=offset, log2_base=log2_base)
     out = launch_chunk("step_context", VARIANTS.index(variant), acc, bara_t,
                        key, start, chunk, rounded, offset=offset,
-                       log2_base=log2_base)
+                       log2_base=log2_base, rows=rows)
     launches += 1
     return out
 

@@ -20,6 +20,7 @@ import torch
 from ..numeric import wrap_i32
 from . import cmux
 from . import flat_engine as fe
+from . import key_rows as kr
 from . import step_parts as sp
 
 MASK1, DECOMP = 2, 2
@@ -55,9 +56,11 @@ def step_overlap_plain(acc, p, key_row, *, offset, log2_base):
     return fe.n_from_q(out.reshape(bsz, MASK1, N))
 
 
-def step_overlap(acc, p, key_row, *, offset, log2_base):
+def step_overlap(acc, p, key_row, *, offset, log2_base, rows=None):
     """K8: one exact CMUX step in the split schedule.  A CUDA tensor runs
-    the kernel; a CPU tensor the plain version.  Returns a new tensor."""
+    the kernel; a CPU tensor the plain version.  Returns a new tensor.
+    ``rows``: the key row's prepared rows (``ops/key_rows``), which the
+    kernel reads: required on CUDA."""
     global launches
     if cmux.check_acc(acc, "step_overlap") != MASK1:
         raise ValueError("step_overlap takes mask1 = %d, got %d"
@@ -83,11 +86,12 @@ def step_overlap(acc, p, key_row, *, offset, log2_base):
         raise ValueError("step_overlap takes contiguous tensors")
     if not 1 <= log2_base <= 16:
         raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
+    rows = kr.launch_rows(key_row, False, rows, None, 1, "step_overlap")
     from ..kernels import build
     fn = build.entry("step_overlap")
     out = torch.empty_like(acc)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), key_row.data_ptr(),
+    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), rows.data_ptr(),
               acc.shape[0], int(offset) & 0xFFFFFFFF, int(log2_base),
               acc.device.index, stream)
     build.check("step_overlap", code)

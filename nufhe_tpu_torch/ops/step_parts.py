@@ -43,6 +43,7 @@ import torch
 from ..numeric import wrap_i32
 from . import cmux
 from . import flat_engine as fe
+from . import key_rows as kr
 from . import transform as tf
 
 # the JAX names (tools/microbench.py:210-213; "dec+fwd(SWAR)" there is the
@@ -167,9 +168,11 @@ def step_part_plain(name, acc, p, key_row, *, offset, log2_base,
     return fe.n_from_q(out)
 
 
-def step_part(name, acc, p, key_row, *, offset, log2_base):
+def step_part(name, acc, p, key_row, *, offset, log2_base, rows=None):
     """K5: part ``name`` of the exact CMUX step.  A CUDA tensor runs the
-    kernel; a CPU tensor the plain version.  Returns a new tensor."""
+    kernel; a CPU tensor the plain version.  Returns a new tensor.
+    ``rows``: the key row's prepared rows (``ops/key_rows``), which the
+    kernel reads: required on CUDA."""
     global launches
     if name not in PARTS:
         raise ValueError("unknown part %r; the parts are %s" % (name, PARTS))
@@ -195,12 +198,13 @@ def step_part(name, acc, p, key_row, *, offset, log2_base):
         raise ValueError("step_part takes contiguous tensors")
     if not 1 <= log2_base <= 16:
         raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
+    rows = kr.launch_rows(key_row, False, rows, None, 1, "step_part")
     from ..kernels import build
     fn = build.entry("step_parts")
     out = torch.empty((acc.shape[0], out_polys(name), N), dtype=torch.int32,
                       device=acc.device)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), key_row.data_ptr(),
+    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), rows.data_ptr(),
               acc.shape[0], PARTS.index(name), int(offset) & 0xFFFFFFFF,
               int(log2_base), acc.device.index, stream)
     build.check("step_parts", code)

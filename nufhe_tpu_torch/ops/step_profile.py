@@ -30,6 +30,7 @@ import torch
 from ..numeric import wrap_i32
 from . import cmux
 from . import flat_engine as fe
+from . import key_rows as kr
 from . import step_parts as sp
 
 PARTS = ("noop (1 pass)", "rot j-rolls b0-4", "rot Y-rolls 1/2/4",
@@ -74,10 +75,11 @@ def step_profile_plain(name, acc, p, key_row, *, offset, log2_base):
                               log2_base=log2_base, rotate=True)
 
 
-def step_profile(name, acc, p, key_row, *, offset, log2_base):
+def step_profile(name, acc, p, key_row, *, offset, log2_base, rows=None):
     """K9: part ``name`` of the CMUX step, either key form.  A CUDA tensor
     runs the kernel; a CPU tensor the plain version.  Returns a new
-    tensor."""
+    tensor.  ``rows``: the key row's prepared rows (``ops/key_rows``),
+    which the kernel reads: required on CUDA."""
     global launches
     if name not in PARTS:
         raise ValueError("unknown part %r; the parts are %s" % (name, PARTS))
@@ -104,12 +106,13 @@ def step_profile(name, acc, p, key_row, *, offset, log2_base):
         raise ValueError("step_profile takes contiguous tensors")
     if not 1 <= log2_base <= 16:
         raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
+    rows = kr.launch_rows(key_row, rounded, rows, None, 1, "step_profile")
     from ..kernels import build
     fn = build.entry("step_profile")
     out = torch.empty((acc.shape[0], out_polys(name), N), dtype=torch.int32,
                       device=acc.device)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), key_row.data_ptr(),
+    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), rows.data_ptr(),
               acc.shape[0], PARTS.index(name), int(offset) & 0xFFFFFFFF,
               int(log2_base), int(rounded), acc.device.index, stream)
     build.check("step_profile", code)

@@ -18,6 +18,7 @@ import torch
 
 from . import cmux
 from . import flat_engine as fe
+from . import key_rows as kr
 from . import step_parts as sp
 
 # the JAX script's short names (tools/exp_round3.py:137-143); the index is
@@ -49,9 +50,11 @@ def step_schedule_plain(name, acc, p, key_row, *, offset, log2_base):
     return fe.n_from_q(out.reshape(bsz, MASK1, N))
 
 
-def step_schedule(name, acc, p, key_row, *, offset, log2_base):
+def step_schedule(name, acc, p, key_row, *, offset, log2_base, rows=None):
     """K10: one CMUX step in schedule ``name``.  A CUDA tensor runs the
-    kernel; a CPU tensor the plain version.  Returns a new tensor."""
+    kernel; a CPU tensor the plain version.  Returns a new tensor.
+    ``rows``: the key row's prepared rows (``ops/key_rows``), which the
+    kernel reads: required on CUDA."""
     global launches
     if name not in SCHEDULES:
         raise ValueError("unknown schedule %r; the schedules are %s"
@@ -79,11 +82,12 @@ def step_schedule(name, acc, p, key_row, *, offset, log2_base):
         raise ValueError("step_schedule takes contiguous tensors")
     if not 1 <= log2_base <= 16:
         raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
+    rows = kr.launch_rows(key_row, rounded, rows, None, 1, "step_schedule")
     from ..kernels import build
     fn = build.entry("step_schedules")
     out = torch.empty_like(acc)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), key_row.data_ptr(),
+    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), rows.data_ptr(),
               acc.shape[0], SCHEDULES.index(name), int(offset) & 0xFFFFFFFF,
               int(log2_base), int(rounded), acc.device.index, stream)
     build.check("step_schedules", code)

@@ -68,10 +68,11 @@ def step_trick_plain(variant, acc, bara_t, key, start, chunk, *, offset,
 
 
 def step_trick(variant, acc, bara_t, key, start, chunk, *, offset,
-               log2_base):
+               log2_base, rows=None):
     """K11: steps [start, start + chunk) of ``variant``.  A CUDA tensor runs
     the kernel (t8 and t8+t9 on ``even_powers(bara_t)``); a CPU tensor the
-    plain version.  Returns a new tensor."""
+    plain version.  Returns a new tensor.  ``rows``: the key's prepared
+    rows (``ops/key_rows``), which the kernel reads: required on CUDA."""
     global launches
     if variant not in VARIANTS:
         raise ValueError("unknown variant %r; the variants are %s"
@@ -85,6 +86,6 @@ def step_trick(variant, acc, bara_t, key, start, chunk, *, offset,
         bara_t = even_powers(bara_t)
     out = sc.launch_chunk("step_tricks", VARIANTS.index(variant), acc, bara_t,
                           key, start, chunk, rounded, offset=offset,
-                          log2_base=log2_base)
+                          log2_base=log2_base, rows=rows)
     launches += 1
     return out

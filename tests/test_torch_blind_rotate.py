@@ -22,6 +22,7 @@ from nufhe_tpu_torch.numeric import wrap_i32
 from nufhe_tpu_torch.ops import blind_rotate as brc
 from nufhe_tpu_torch.ops import bootstrap as tboot, cmux, transform as ttf
 from nufhe_tpu_torch.ops import flat_engine as tfe
+from nufhe_tpu_torch.ops import key_rows as tkr
 from nufhe_tpu_torch.params import NuFHEParameters as TParams
 from nufhe_tpu_torch.ref import bootstrap_ref as t_bootstrap_ref
 from nufhe_tpu_torch.ref import tgsw_ref as t_tgsw_ref
@@ -215,37 +216,17 @@ def _k3_group(rounded, row, limb):
 
 
 def _k3_rows(key_row):
-    """K3's on-chip key rows, written as the kernel writes them: the int64
-    key row (G, O, L, R) (or (2, G, O, L, R) rounded), any representative
-    mod 2^38, -> two-sided limbs (exact: vlo = balanced x mod 64, then the
-    4 balanced radix-2^8 digits of (x - vlo) / 64 mod 2^32 as the bytes of
-    (y + 0x80808080) ^ 0x80808080, then 4*vlo; side 1 from -x; rounded: the
-    digits of (x + 32) >> 6 of each stored side) -> per (g, o, slot, limb
-    row) a reversed 64-byte row, byte 31 - r the limb of side 0 at rotation
-    r and byte 63 - r that of side 1: (G, O, L, rows, 64) int64 and whether
-    the key is rounded.  Natural slot order (slot t is frequency t)."""
-    def radix256(y):
-        word = (((y & 0xFFFFFFFF) + 0x80808080) & 0xFFFFFFFF) ^ 0x80808080
-        digits = [(word >> (8 * q)) & 255 for q in range(4)]
-        return [b - ((b & 128) << 1) for b in digits]      # signed bytes
-
-    def split_exact(x):
-        vlo = ((x + 32) & 63) - 32
-        return [vlo] + radix256((x - vlo) >> 6) + [4 * vlo]
-
+    """K3's key rows as the port prepares them (``ops/key_rows``, the row
+    kernel's plain version) for the int64 key row (G, O, L, R) (or (2, G,
+    O, L, R) rounded): per (g, o, slot, limb row) a reversed 64-byte row,
+    byte 31 - r the limb of side 0 at rotation r and byte 63 - r that of
+    side 1: (G, O, L, rows, 64) int64, natural slot order (slot t is
+    frequency t, the prepared rows' slot p being rev6(p)), and whether the
+    key is rounded."""
     rounded = key_row.dim() == 5
-    if rounded:
-        s0 = radix256((key_row[0] + 32) >> 6)
-        s1 = radix256((key_row[1] + 32) >> 6)
-    else:
-        s0, s1 = split_exact(key_row), split_exact(-key_row)
-    g_sz, o_sz, l_sz, r_sz = s0[0].shape
-    rows = torch.zeros((g_sz, o_sz, l_sz, len(s0), 64), dtype=torch.int64)
-    lane = torch.arange(r_sz)
-    for limb in range(len(s0)):
-        rows[:, :, :, limb, 31 - lane] = s0[limb]
-        rows[:, :, :, limb, 63 - lane] = s1[limb]
-    return rows, rounded
+    rows = tkr.key_rows_plain(key_row, rounded)       # (L, G, O, rows, 64)
+    rows = rows[torch.from_numpy(ttf.BITREV_L)]       # slot p -> frequency
+    return rows.permute(1, 2, 0, 3, 4).to(torch.int64), rounded
 
 
 def _toeplitz(rows, row):

@@ -29,7 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch
 
 from microbench_torch import _setup, _where, time_ms  # noqa: E402
-from nufhe_tpu_torch.ops import cmux  # noqa: E402
+from nufhe_tpu_torch.ops import cmux, key_rows as kr  # noqa: E402
 from nufhe_tpu_torch.ops import step_overlap as so  # noqa: E402
 
 CHECK = 512
@@ -41,6 +41,7 @@ def run(batch, device="cuda", reps=20):
     """Both schedules at ``batch``: ms a step by schedule, and whether the
     split equals the serial step on the first samples."""
     acc, powers, row, kw = _setup(batch, device, exact=True)
+    kw = dict(kw, rows=kr.key_rows(row, False))   # prepared with the key
     n = min(CHECK, batch)
     small, p_small = acc[:n].contiguous(), powers[:n].contiguous()
     exact = torch.equal(SCHEDULES["serial"](small, p_small, row, **kw),

@@ -33,7 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch
 
 from microbench_torch import _setup, _where, exact_engine, time_ms  # noqa: E402
-from nufhe_tpu_torch.ops import cmux  # noqa: E402
+from nufhe_tpu_torch.ops import cmux, key_rows as kr  # noqa: E402
 from nufhe_tpu_torch.ops import step_schedules as ss  # noqa: E402
 
 N_LWE = 500       # steps of a gate's rotation: ms/bit = ms * 500 / batch
@@ -45,6 +45,7 @@ def run(batch, device="cuda", exact=None, reps=20):
     if exact is None:
         exact = exact_engine()
     acc, powers, row, kw = _setup(batch, device, exact=exact)
+    kw = dict(kw, rows=kr.key_rows(row, not exact))   # prepared with the key
     print("mode=%s batch=%d" % ("exact" if exact else "rounded-key", batch),
           flush=True)
     ref = cmux.cmux_step(acc, powers, row, **kw)

@@ -41,7 +41,8 @@ import torch
 
 import nufhe_tpu_torch as nft
 from nufhe_tpu_torch.ops import blind_rotate as brc
-from nufhe_tpu_torch.ops import cmux, lwe as dlwe, step_parts as sp
+from nufhe_tpu_torch.ops import cmux, key_rows as kr, lwe as dlwe
+from nufhe_tpu_torch.ops import step_parts as sp
 from nufhe_tpu_torch.ops import transform as tf
 from nufhe_tpu_torch.utils import profiling
 
@@ -82,7 +83,9 @@ def _setup(batch, device, exact=None):
 def bench_step(batch, device="cuda", reps=20):
     """K1 at ``batch``: ms a launch and ms/bit of a 500-step rotation."""
     acc, powers, row, kw = _setup(batch, device)
-    ms = time_ms(lambda: cmux.cmux_step(acc, powers, row, **kw), reps, device)
+    rows = kr.key_rows(row, row.dim() == 5)      # prepared with the key
+    ms = time_ms(lambda: cmux.cmux_step(acc, powers, row, rows=rows, **kw),
+                 reps, device)
     ms_bit = ms * 500 / batch
     mode = "exact" if exact_engine() else "rounded-key"
     print("CMUX step K1 [%s] B=%d: %.4f %s -> %.5f ms/bit (x%.2f vs the "
@@ -94,10 +97,12 @@ def bench_step(batch, device="cuda", reps=20):
 def bench_parts(batch, device="cuda", reps=20):
     """K5: each stage part of the exact step at ``batch``, ms a launch."""
     acc, powers, row, kw = _setup(batch, device, exact=True)
+    rows = kr.key_rows(row, False)               # prepared with the key
     out = {}
     for name in sp.PARTS:
         out[name] = time_ms(
-            lambda: sp.step_part(name, acc, powers, row, **kw), reps, device)
+            lambda: sp.step_part(name, acc, powers, row, rows=rows, **kw),
+            reps, device)
         print("%-16s: %9.4f %s" % (name, out[name], _where(device)),
               flush=True)
     return out
@@ -142,6 +147,7 @@ def bench_rotation(batch, device="cuda", n_steps=None, chunks=None,
         exact = exact_engine()
     acc, _, row, kw = _setup(batch, device, exact=exact)
     key = row.expand((n_steps,) + tuple(row.shape)).contiguous()
+    rows = kr.key_rows(key, not exact)           # prepared with the key
     rs = np.random.RandomState(1)
     bara_t = torch.from_numpy(rs.randint(0, 2 * tf.N, (n_steps, batch)).astype(
         np.int32)).to(device)
@@ -149,13 +155,14 @@ def bench_rotation(batch, device="cuda", n_steps=None, chunks=None,
     def per_step():
         a = acc
         for i in range(n_steps):
-            a = cmux.cmux_step(a, bara_t[i], key[i], **kw)
+            a = cmux.cmux_step(a, bara_t[i], key[i], rows=rows[i], **kw)
         return a
 
     def chunked(chunk):
         a = acc
         for start in range(0, n_steps, chunk):
-            a = brc.blind_rotate_chunk(a, bara_t, key, start, chunk, **kw)
+            a = brc.blind_rotate_chunk(a, bara_t, key, start, chunk,
+                                       rows=rows, **kw)
         return a
 
     print("engine: %s steps=%d" % ("exact" if exact else "rounded-key",
