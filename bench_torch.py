@@ -222,9 +222,10 @@ def nvidia_smi_line():
 
 def _prepare_key(cloud, dev):
     """The default path's key set of ``cloud`` on ``dev``, part by part
-    (seconds): the transform and limb split, the rows key (K3's), the
-    keyswitch operand; and the lanes key (``mac_rhs``'s computation, not
-    kept, so the timed chains do not hold it)."""
+    (seconds): the transform and limb split, the rows key as K3 reads it
+    (``BootstrapKey.device``), the keyswitch operand; and the lanes key
+    (``mac_rhs``'s computation, not kept, so the timed chains do not hold
+    it)."""
     from nufhe_tpu_torch.ops import tgsw
     bk = cloud.bootstrap_key
     (pos, delta), t_transform = _timed(bk.compact, dev)
@@ -238,10 +239,13 @@ def _prepare_key(cloud, dev):
 
 def _load_key(cloud, dev):
     """A format-4 container of ``cloud`` loaded and prepared on ``dev``,
-    part by part (seconds): deserialise, one upload of the compact form,
-    the rows key and the lanes key from it there, the keyswitch operand."""
+    part by part (seconds): deserialise, one upload of the compact form and
+    the lanes key from it there, the rows key as K3 reads it
+    (``BootstrapKey.device``, with its own upload of the compact form), the
+    keyswitch operand.  ``key_load_s`` counts one upload, the one within
+    ``bk_rows``."""
     import nufhe_tpu_torch as nft
-    from nufhe_tpu_torch.ops import tgsw, transform
+    from nufhe_tpu_torch.ops import tgsw
     blob = cloud.dumps()
     t0 = time.time()
     loaded = nft.NuFHECloudKey.loads(blob)
@@ -250,8 +254,7 @@ def _load_key(cloud, dev):
     (pos_dev, delta_dev), t_upload = _timed(lambda: (
         torch.from_numpy(pos).to(dev),
         None if delta is None else torch.from_numpy(delta).to(dev)), dev)
-    _, t_rows = _timed(lambda: transform.rows_key_from_limbs(
-        transform.two_sided_limbs_device(pos_dev, delta_dev), dev), dev)
+    _, t_rows = _timed(lambda: loaded.bootstrap_key.device(dev), dev)
     _, t_lanes = _timed(lambda: tgsw.expand_bootstrap_key_device_compact(
         pos_dev, delta_dev, dev), dev)
     _, t_ks = _timed(lambda: loaded.keyswitch_key.device(dev), dev)
@@ -374,8 +377,9 @@ def run(batch=16384, runs=3, inner=4, gate="nand", transform="fft",
     key_prep_t = prep["bk_transform"] + prep["bk_rows"] + prep["ks_prep"]
     key_prep_warm_t = (prep_warm["bk_transform"] + prep_warm["bk_rows"]
                        + prep_warm["ks_prep"])
-    key_load_t = (load["deserialize"] + load["bk_upload"] + load["bk_rows"]
-                  + load["ks_prep"])
+    # bk_rows makes its own upload of the compact form (bk_upload is the
+    # lanes key's)
+    key_load_t = load["deserialize"] + load["bk_rows"] + load["ks_prep"]
     detail = {
         "device": str(dev),
         "card": torch.cuda.get_device_name(dev) if on_card else None,

@@ -53,8 +53,10 @@ and prints no result line):
    and 50 and on an n = 630 key's tail of 30 steps at (2, 3), against the
    plain steps; the row kernel at the n = 500 and n = 630 keys' sizes
    against its plain version, timed beside its bound; ``rows_prepared``
-   1 a key and CUDA device after ``BootstrapKey.device`` (none for the
-   CPU) and 0 across the gates after it (NAND and MUX on K3, NAND on K1);
+   1 a key and CUDA device after ``BootstrapKey.device``, which holds the
+   rows there and no int64 key (the card's allocated memory grows by the
+   rows alone), none for the CPU, whose key is the int64 one, and 0 across
+   the gates after it (NAND and MUX on K3, NAND on K1);
    ``ptxas``'s registers and spills of every K3 instantiation.  Every
    launch of K1, K3 and their variants in this script reads rows prepared
    once for its key;
@@ -365,6 +367,17 @@ def random_key(rng, rows, tp, dev, transform_type, mask1=2):
         random_bk(rng, rows, mask1, tp.decomp_length), dev, transform_type)
 
 
+def int64_key(bk, dev):
+    """The int64 key that ``BootstrapKey`` ``bk``'s rows are made from,
+    made on ``dev`` by ``ops/transform`` from its compact form: the
+    operand of the plain versions that the kernels are held against."""
+    from nufhe_tpu_torch.ops import transform as tf
+    pos, delta = bk.compact()
+    return tf.rows_key_from_limbs(tf.two_sided_limbs_device(
+        torch.as_tensor(pos).to(dev),
+        None if delta is None else torch.as_tensor(delta).to(dev)), dev)
+
+
 def rows_of(key, transform_type):
     """The int8 limb rows that K1 and K3 read for ``key`` (a key or one key
     row), prepared once by the row kernel (``ops/key_rows``)."""
@@ -420,7 +433,7 @@ def check_kernels(nft, dev, rng, results):
         for batch in (64, MAIN_BATCH):
             acc, p = random_acc(rng, batch, dev), random_powers(rng, (batch,), dev)
             key_row = random_key(rng, 1, tp, dev, mode)[0].contiguous()
-            got = cmux.cmux_step(acc, p, key_row, rows=rows_of(key_row, mode),
+            got = cmux.cmux_step(acc, p, rows_of(key_row, mode),
                                  **kw)
             want = cmux.cmux_step_plain(acc, p, key_row, **kw)
             torch.cuda.synchronize()
@@ -445,13 +458,12 @@ def check_kernels(nft, dev, rng, results):
         for batch in (101, MAIN_BATCH):     # 101: a partial sample group
             acc = random_acc(rng, batch, dev)
             bara_t = random_powers(rng, (steps, batch), dev)
-            got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk,
-                                         rows=rows, **kw)
+            got = brc.blind_rotate_chunk(acc, bara_t, rows, start, chunk, **kw)
             want = brc.blind_rotate_chunk_plain(acc, bara_t, key, start, chunk,
                                                 **kw)
             by_k1 = acc
             for i in range(start, start + chunk):
-                by_k1 = cmux.cmux_step(by_k1, bara_t[i], key[i], rows=rows[i],
+                by_k1 = cmux.cmux_step(by_k1, bara_t[i], rows[i],
                                        **kw)
             torch.cuda.synchronize()
             record_err(results, "blind_rotate_chunk",
@@ -517,16 +529,15 @@ def prepared_rows(nft, dev, rng, results):
             for batch in (1, 130):
                 acc = random_acc(rng, batch, dev, mask1)
                 bara_t = random_powers(rng, (steps, batch), dev)
-                got = cmux.cmux_step(acc, bara_t[start], key[start],
-                                     rows=rows[start], **kw)
+                got = cmux.cmux_step(acc, bara_t[start], rows[start], **kw)
                 want = cmux.cmux_step_plain(acc, bara_t[start], key[start],
                                             **kw)
                 record_err(results, "cmux_step", "K1 %s %s on prepared rows "
                            "vs plain, batch %d" % (shape, mode, batch),
                            max_abs_err(got, want))
                 for chunk in K3_CHUNKS:
-                    got = brc.blind_rotate_chunk(acc, bara_t, key, start,
-                                                 chunk, rows=rows, **kw)
+                    got = brc.blind_rotate_chunk(acc, bara_t, rows, start,
+                                                 chunk, **kw)
                     want = brc.blind_rotate_chunk_plain(acc, bara_t, key,
                                                         start, chunk, **kw)
                     record_err(results, "blind_rotate_chunk", "K3 %s %s on "
@@ -547,8 +558,7 @@ def prepared_rows(nft, dev, rng, results):
         rows = kr.key_rows(key, mode == "FFT")
         acc = random_acc(rng, 64, dev)
         bara_t = random_powers(rng, (n, 64), dev)
-        got = brc.blind_rotate_chunk(acc, bara_t, key, start, n - start,
-                                     rows=rows, **kw)
+        got = brc.blind_rotate_chunk(acc, bara_t, rows, start, n - start, **kw)
         want = brc.blind_rotate_chunk_plain(acc, bara_t, key, start,
                                             n - start, **kw)
         record_err(results, "blind_rotate_chunk", "K3 (2, 3) %s on prepared "
@@ -590,12 +600,21 @@ def prepared_rows(nft, dev, rng, results):
         secret, cloud = nft.make_key_pair(nft.DeterministicRNG(SEED),
                                           transform_type=mode)
         bk = cloud.bootstrap_key
+        bk.compact()                    # the card-made key's limbs, kept
+        torch.cuda.synchronize()
         kr.rows_prepared = 0
-        bk.device(dev)
-        bk.device(dev)
-        bk.rows(dev)
-        bk.device("cpu")                # no rows off CUDA
-        counted = {"key": kr.rows_prepared}
+        before = torch.cuda.memory_allocated(dev)
+        rows = bk.device(dev)
+        held = torch.cuda.memory_allocated(dev) - before
+        cpu_key = bk.device("cpu")      # the int64 key off CUDA
+        counted = {"key": kr.rows_prepared, "held_bytes": held}
+        if bk.device(dev) is not rows or rows.dtype != torch.int8 \
+                or cpu_key.dtype != torch.int64 \
+                or held > rows.numel() + (1 << 20):
+            raise AssertionError("the key on the card: %s %s, %d bytes held "
+                                 "for %d bytes of rows" % (
+                                     rows.dtype, tuple(rows.shape), held,
+                                     rows.numel()))
         bits = [b.astype(bool) for b in inputs]
         cts = [nft.encrypt(nft.DeterministicRNG(SEED + 1), secret, b,
                            device=dev) for b in bits]
@@ -623,13 +642,13 @@ def prepared_rows(nft, dev, rng, results):
                 raise AssertionError("gates on prepared rows (%s %s): %s"
                                      % (mode, label, counted))
         print("rows_prepared %s: %s" % (mode, json.dumps(counted)))
-        if counted["key"] != 1 or bk.rows("cpu") is not None:
+        if counted["key"] != 1:
             raise AssertionError("rows_prepared %s: one a key and CUDA "
                                  "device expected, got %d" % (mode,
                                                              counted["key"]))
         if mode == "NTT":
             results["key_rows"]["launches"] = counted["key"]
-        del secret, cloud, bk, cts
+        del secret, cloud, bk, cts, rows, cpu_key
     for fn, (regs, stores, loads) in sorted(k3_ptxas().items()):
         print("K3 ptxas %s: %d registers, spill stores %d, loads %d bytes"
               % (fn, regs, stores, loads))
@@ -696,16 +715,15 @@ def check_k3_batches(nft, dev, rng, results):
             for batch in K3_BATCHES:
                 acc = random_acc(rng, batch, dev, mask1)
                 bara_t = random_powers(rng, (steps, batch), dev)
-                got = cmux.cmux_step(acc, bara_t[start], key[start],
-                                     rows=rows[start], **kw)
+                got = cmux.cmux_step(acc, bara_t[start], rows[start], **kw)
                 want = cmux.cmux_step_plain(acc, bara_t[start], key[start],
                                             **kw)
                 torch.cuda.synchronize()
                 record_err(results, "cmux_step", "K1 %s %s vs plain, batch %d"
                            % (shape, mode, batch), max_abs_err(got, want))
                 for chunk in K3_CHUNKS if batch <= 128 else K3_LARGE_CHUNKS:
-                    got = brc.blind_rotate_chunk(acc, bara_t, key, start,
-                                                 chunk, rows=rows, **kw)
+                    got = brc.blind_rotate_chunk(acc, bara_t, rows, start,
+                                                 chunk, **kw)
                     want = brc.blind_rotate_chunk_plain(acc, bara_t, key,
                                                         start, chunk, **kw)
                     torch.cuda.synchronize()
@@ -737,18 +755,17 @@ def check_variant_shape(nft, dev, rng, results, mask1, decomp_length):
         for batch in (64, 101):
             acc = random_acc(rng, batch, dev, mask1)
             bara_t = random_powers(rng, (steps, batch), dev)
-            got = cmux.cmux_step(acc, bara_t[0], key[0], rows=rows[0], **kw)
+            got = cmux.cmux_step(acc, bara_t[0], rows[0], **kw)
             want = cmux.cmux_step_plain(acc, bara_t[0], key[0], **kw)
             torch.cuda.synchronize()
             record_err(results, "cmux_step", "K1 %s %s vs plain, batch %d"
                        % (shape, mode, batch), max_abs_err(got, want))
-            got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk,
-                                         rows=rows, **kw)
+            got = brc.blind_rotate_chunk(acc, bara_t, rows, start, chunk, **kw)
             want = brc.blind_rotate_chunk_plain(acc, bara_t, key, start, chunk,
                                                 **kw)
             by_k1 = acc
             for i in range(start, start + chunk):
-                by_k1 = cmux.cmux_step(by_k1, bara_t[i], key[i], rows=rows[i],
+                by_k1 = cmux.cmux_step(by_k1, bara_t[i], rows[i],
                                        **kw)
             torch.cuda.synchronize()
             record_err(results, "blind_rotate_chunk", "K3 %s %s vs plain, "
@@ -794,8 +811,7 @@ def check_k4(dev, rng, results, tp, kw):
             bara_t, **kw)
         by_k1 = acc
         for i in range(steps):
-            by_k1 = cmux.cmux_step(by_k1, bara_t[i], rows_key[i],
-                                   rows=rows[i], **kw)
+            by_k1 = cmux.cmux_step(by_k1, bara_t[i], rows[i], **kw)
         torch.cuda.synchronize()
         record_err(results, "lanes_step", "K4 %s: %d launches vs %d K1 "
                    "launches on the same coefficient key, batch %d"
@@ -1399,8 +1415,8 @@ def tfhe_lib_params(nft, dev, rng, results):
         for start, chunk in ((0, CHUNK), (n - tail, tail)):
             torch.cuda.synchronize()
             reset_counts()
-            got = brc.blind_rotate_chunk(acc, bara_t, key, start, chunk,
-                                         rows=key_rows, **kw)
+            got = brc.blind_rotate_chunk(acc, bara_t, key_rows, start, chunk,
+                                         **kw)
             torch.cuda.synchronize()
             counted = (brc.launches, brc.steps)
             want = brc.blind_rotate_chunk_plain(sub_acc, sub_bara, key, start,
@@ -1491,16 +1507,15 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
     p = random_powers(rng, (b,), dev)
     k1_ms = {}
     for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
-        key_row = c.bootstrap_key.device(dev)[0]
-        rows = c.bootstrap_key.rows(dev)[0]
-        got = cmux.cmux_step(acc, p, key_row, rows=rows, **kw)
+        rows = c.bootstrap_key.device(dev)[0]
+        key_row = int64_key(c.bootstrap_key, dev)[0]
+        got = cmux.cmux_step(acc, p, rows, **kw)
         want = cmux.cmux_step_plain(acc, p, key_row, **kw)
         torch.cuda.synchronize()
         record_err(results, "cmux_step", "K1 %s vs plain, batch %d"
                    % (mode, b), max_abs_err(got, want))
         del got, want
-        k1_ms[mode] = cuda_ms(lambda: cmux.cmux_step(acc, p, key_row,
-                                                     rows=rows, **kw), 20)
+        k1_ms[mode] = cuda_ms(lambda: cmux.cmux_step(acc, p, rows, **kw), 20)
         plain = cuda_ms(lambda: cmux.cmux_step_plain(acc, p, key_row, **kw), 2)
         # the step's key limb rows, int8, which the kernel reads
         n_bytes = 2 * acc.numel() * 4 + p.numel() * 4 + rows.numel()
@@ -1521,12 +1536,12 @@ def timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results):
     # accumulator and rotation amounts
     bara_t = random_powers(rng, (N_LWE, b), dev)
     for mode, c in (("NTT", cloud), ("FFT", cloud_fft)):
-        key = c.bootstrap_key.device(dev)
-        rows = c.bootstrap_key.rows(dev)
-        got = brc.blind_rotate_chunk(acc, bara_t, key, 0, CHUNK, rows=rows,
+        rows = c.bootstrap_key.device(dev)
+        key = int64_key(c.bootstrap_key, dev)
+        got = brc.blind_rotate_chunk(acc, bara_t, rows, 0, CHUNK,
                                      **kw)
         k3_ms = cuda_ms(lambda: brc.blind_rotate_chunk(
-            acc, bara_t, key, 0, CHUNK, rows=rows, **kw), 3)
+            acc, bara_t, rows, 0, CHUNK, **kw), 3)
         plain_out = []
         plain = cuda_ms(lambda: plain_out.append(brc.blind_rotate_chunk_plain(
             acc, bara_t, key, 0, CHUNK, **kw)), 1)
@@ -1885,16 +1900,16 @@ def check_step_parts(nft, dev, rng, results):
     for batch in (101, 256):
         acc, p = random_acc(rng, batch, dev), random_powers(rng, (batch,), dev)
         for name in sp.PARTS:
-            got = sp.step_part(name, acc, p, key_row, rows=rows, **kw)
+            got = sp.step_part(name, acc, p, rows, **kw)
             want = sp.step_part_plain(name, acc, p, key_row, **kw)
             torch.cuda.synchronize()
             record_err(results, "step_parts", "K5 %r vs plain, batch %d"
                        % (name, batch), max_abs_err(got, want))
         record_err(results, "step_parts", "K5 'FULL step' vs K1, batch %d"
                    % batch, max_abs_err(
-                       sp.step_part("FULL step", acc, p, key_row, rows=rows,
+                       sp.step_part("FULL step", acc, p, rows,
                                     **kw),
-                       cmux.cmux_step(acc, p, key_row, rows=rows, **kw)))
+                       cmux.cmux_step(acc, p, rows, **kw)))
     reset_counts()
 
 
@@ -1961,7 +1976,7 @@ def step_parts_timing(dev, results, microbench, smi):
     rows = rows_of(row, "NTT")
     plain = {}
     for name in sp.PARTS:
-        got = sp.step_part(name, acc, p, row, rows=rows, **kw)
+        got = sp.step_part(name, acc, p, rows, **kw)
         plain_out = []
         plain[name] = cuda_ms(lambda: plain_out.append(
             sp.step_part_plain(name, acc, p, row, **kw)), 1)
@@ -2010,8 +2025,8 @@ def check_step_experiments(nft, dev, rng, results):
             acc = random_acc(rng, batch, dev)
             bara_t = random_powers(rng, (8, batch), dev)
             for v in sc.VARIANTS:
-                got = sc.step_context(v, acc, bara_t, key, 2, CHECK_STEPS,
-                                      rows=rows, **kw)
+                got = sc.step_context(v, acc, bara_t, rows, 2, CHECK_STEPS,
+                                      **kw)
                 want = sc.step_context_plain(v, acc, bara_t, key, 2,
                                              CHECK_STEPS, **kw)
                 torch.cuda.synchronize()
@@ -2020,20 +2035,20 @@ def check_step_experiments(nft, dev, rng, results):
                            max_abs_err(got, want))
             p = bara_t[0].contiguous()
             for name in spf.PARTS:
-                got = spf.step_profile(name, acc, p, key_row, rows=rows[0],
+                got = spf.step_profile(name, acc, p, rows[0],
                                        **kw)
                 want = spf.step_profile_plain(name, acc, p, key_row, **kw)
                 torch.cuda.synchronize()
                 record_err(results, "step_profile", "K9 %r %s vs plain, "
                            "batch %d" % (name, mode, batch),
                            max_abs_err(got, want))
-            k1 = cmux.cmux_step(acc, p, key_row, rows=rows[0], **kw)
+            k1 = cmux.cmux_step(acc, p, rows[0], **kw)
             record_err(results, "step_profile", "K9 'FULL step' %s vs K1, "
                        "batch %d" % (mode, batch), max_abs_err(
-                           spf.step_profile("FULL step", acc, p, key_row,
-                                            rows=rows[0], **kw), k1))
+                           spf.step_profile("FULL step", acc, p, rows[0],
+                                            **kw), k1))
             if mode == "NTT":
-                got = so.step_overlap(acc, p, key_row, rows=rows[0], **kw)
+                got = so.step_overlap(acc, p, rows[0], **kw)
                 record_err(results, "step_overlap", "K8 vs plain, batch %d"
                            % batch, max_abs_err(got, so.step_overlap_plain(
                                acc, p, key_row, **kw)))
@@ -2089,12 +2104,12 @@ def context_phase(dev, results, e4, smi):
         acc, bara_t, key, kw = e4.context_inputs(b, dev, CONTEXT_STEPS,
                                                  mode == "NTT")
         rows = rows_of(key, mode)
-        got = sc.step_context("FULL", acc, bara_t, key, 0, CONTEXT_STEPS,
-                              rows=rows, **kw)
+        got = sc.step_context("FULL", acc, bara_t, rows, 0, CONTEXT_STEPS,
+                              **kw)
         by_k3 = acc
         for start in range(0, CONTEXT_STEPS, CHUNK):
-            by_k3 = brc.blind_rotate_chunk(by_k3, bara_t, key, start, CHUNK,
-                                           rows=rows, **kw)
+            by_k3 = brc.blind_rotate_chunk(by_k3, bara_t, rows, start, CHUNK,
+                                           **kw)
         record_err(results, "step_context", "K6 'FULL' %s, %d steps in one "
                    "launch, vs %d K3 launches of %d, batch %d"
                    % (mode, CONTEXT_STEPS, CONTEXT_STEPS // CHUNK, CHUNK, b),
@@ -2102,8 +2117,7 @@ def context_phase(dev, results, e4, smi):
         del got, by_k3
         plain = {}
         for v in sc.VARIANTS:
-            got = sc.step_context(v, acc, bara_t, key, 0, CHECK_STEPS,
-                                  rows=rows, **kw)
+            got = sc.step_context(v, acc, bara_t, rows, 0, CHECK_STEPS, **kw)
             want, plain[v] = timed_plain(lambda: sc.step_context_plain(
                 v, acc, bara_t, key, 0, CHECK_STEPS, **kw))
             record_err(results, "step_context", "K6 %r %s vs plain, %d "
@@ -2111,7 +2125,7 @@ def context_phase(dev, results, e4, smi):
                        max_abs_err(got, want))
             del got, want
         ms_check = cuda_ms(lambda: sc.step_context(
-            "FULL", acc, bara_t, key, 0, CHECK_STEPS, rows=rows, **kw), 5)
+            "FULL", acc, bara_t, rows, 0, CHECK_STEPS, **kw), 5)
         per_step, counts = tool_counts(
             "exp_round4_torch context %s, batch %d" % (mode, b),
             "step_context", lambda: e4.context(b, dev, n_steps=CONTEXT_STEPS,
@@ -2146,7 +2160,7 @@ def profile_phase(dev, results, microbench, e4, smi):
         rows = rows_of(row, mode)
         plain = {}
         for name in spf.PARTS:
-            got = spf.step_profile(name, acc, p, row, rows=rows, **kw)
+            got = spf.step_profile(name, acc, p, rows, **kw)
             want, plain[name] = timed_plain(lambda: spf.step_profile_plain(
                 name, acc, p, row, **kw))
             record_err(results, "step_profile", "K9 %r %s vs plain, batch %d"
@@ -2154,7 +2168,7 @@ def profile_phase(dev, results, microbench, e4, smi):
             del want
         record_err(results, "step_profile", "K9 'FULL step' %s vs K1, batch "
                    "%d" % (mode, b), max_abs_err(
-                       got, cmux.cmux_step(acc, p, row, rows=rows, **kw)))
+                       got, cmux.cmux_step(acc, p, rows, **kw)))
         ms, counts = tool_counts(
             "exp_round4_torch profile %s, batch %d" % (mode, b),
             "step_profile", lambda: e4.profile(b, dev, exact=mode == "NTT"))
@@ -2215,13 +2229,13 @@ def overlap_phase(dev, results, microbench, eo, smi):
     b = TIMING_BATCH
     acc, p, row, kw = microbench._setup(b, dev, exact=True)
     rows = rows_of(row, "NTT")
-    got = so.step_overlap(acc, p, row, rows=rows, **kw)
+    got = so.step_overlap(acc, p, rows, **kw)
     want, plain = timed_plain(lambda: so.step_overlap_plain(acc, p, row,
                                                             **kw))
     record_err(results, "step_overlap", "K8 vs plain, batch %d" % b,
                max_abs_err(got, want))
     record_err(results, "step_overlap", "K8 vs K1, batch %d" % b,
-               max_abs_err(got, cmux.cmux_step(acc, p, row, rows=rows, **kw)))
+               max_abs_err(got, cmux.cmux_step(acc, p, rows, **kw)))
     del got, want
     res, counts = tool_counts("exp_overlap_torch, batch %d" % b,
                               "step_overlap", lambda: eo.run(b, dev))
@@ -2272,9 +2286,9 @@ def check_step_variants(nft, dev, rng, results):
             acc = random_acc(rng, batch, dev)
             bara_t = random_powers(rng, (4, batch), dev)
             p = bara_t[0].contiguous()
-            k1 = cmux.cmux_step(acc, p, key_row, rows=rows[0], **kw)
+            k1 = cmux.cmux_step(acc, p, rows[0], **kw)
             for name in ss.SCHEDULES:
-                got = ss.step_schedule(name, acc, p, key_row, rows=rows[0],
+                got = ss.step_schedule(name, acc, p, rows[0],
                                        **kw)
                 record_err(results, "step_schedules", "K10 %r %s vs plain, "
                            "batch %d" % (name, mode, batch), max_abs_err(
@@ -2284,10 +2298,10 @@ def check_step_variants(nft, dev, rng, results):
                            "batch %d" % (name, mode, batch),
                            max_abs_err(got, k1))
             k3 = {even: brc.blind_rotate_chunk(
-                acc, st.even_powers(bara_t) if even else bara_t, key, 1, 3,
-                rows=rows, **kw) for even in (False, True)}
+                acc, st.even_powers(bara_t) if even else bara_t, rows, 1, 3,
+                **kw) for even in (False, True)}
             for name in st.VARIANTS:
-                got = st.step_trick(name, acc, bara_t, key, 1, 3, rows=rows,
+                got = st.step_trick(name, acc, bara_t, rows, 1, 3,
                                     **kw)
                 record_err(results, "step_tricks", "K11 %r %s vs plain, "
                            "batch %d" % (name, mode, batch), max_abs_err(
@@ -2297,7 +2311,7 @@ def check_step_variants(nft, dev, rng, results):
                            "%d" % (name, mode, batch),
                            max_abs_err(got, k3[name in st.EVEN]))
             for form in rf.FORMS:
-                got = rf.rotate_form(form, acc, bara_t, key, 1, 3, rows=rows,
+                got = rf.rotate_form(form, acc, bara_t, rows, 1, 3,
                                      **kw)
                 record_err(results, "rotate_forms", "K12 %r %s vs plain, "
                            "batch %d" % (form, mode, batch), max_abs_err(
@@ -2328,11 +2342,11 @@ def schedules_phase(dev, results, microbench, e3, smi):
     for mode in ("NTT", "FFT"):
         acc, p, row, kw = microbench._setup(b, dev, exact=mode == "NTT")
         rows = rows_of(row, mode)
-        k1 = cmux.cmux_step(acc, p, row, rows=rows, **kw)
+        k1 = cmux.cmux_step(acc, p, rows, **kw)
         for name in ss.SCHEDULES:
             record_err(results, "step_schedules", "K10 %r %s vs K1, batch %d"
                        % (name, mode, b), max_abs_err(
-                           ss.step_schedule(name, acc, p, row, rows=rows,
+                           ss.step_schedule(name, acc, p, rows,
                                             **kw), k1))
         want, plain = timed_plain(lambda: ss.step_schedule_plain(
             "v3", acc, p, row, **kw))
@@ -2370,16 +2384,16 @@ def chunk_variants_phase(dev, results, e4, kernel, label, variants, even,
             if (v in even) not in k3:
                 k3[v in even] = brc.blind_rotate_chunk(
                     acc, st.even_powers(bara_t) if v in even else bara_t,
-                    key, 0, CONTEXT_STEPS, rows=rows, **kw)
+                    rows, 0, CONTEXT_STEPS, **kw)
             record_err(results, kernel, "%s %r %s, %d steps in one launch, "
                        "vs one K3 launch, batch %d" % (label, v, mode,
                                                       CONTEXT_STEPS, b),
-                       max_abs_err(run_one(v, acc, bara_t, key, 0,
-                                           CONTEXT_STEPS, rows=rows, **kw),
+                       max_abs_err(run_one(v, acc, bara_t, rows, 0,
+                                           CONTEXT_STEPS, **kw),
                                    k3[v in even]))
         del k3
         first = variants[0]
-        got = run_one(first, acc, bara_t, key, 0, CHECK_STEPS, rows=rows,
+        got = run_one(first, acc, bara_t, rows, 0, CHECK_STEPS,
                       **kw)
         want, plain = timed_plain(lambda: run_plain(
             first, acc, bara_t, key, 0, CHECK_STEPS, **kw))
@@ -2387,8 +2401,8 @@ def chunk_variants_phase(dev, results, e4, kernel, label, variants, even,
                    % (label, first, mode, CHECK_STEPS, b),
                    max_abs_err(got, want))
         del got, want
-        ms_check = cuda_ms(lambda: run_one(first, acc, bara_t, key, 0,
-                                           CHECK_STEPS, rows=rows, **kw), 5)
+        ms_check = cuda_ms(lambda: run_one(first, acc, bara_t, rows, 0,
+                                           CHECK_STEPS, **kw), 5)
         res, counts = tool_counts("%s %s, batch %d" % (label, mode, b),
                                   kernel, lambda: run_tool(mode))
         bound, by = context_bound(b, mode, CHECK_STEPS)

@@ -153,7 +153,6 @@ class BootstrapKey:
         self._limbs = limbs
         self._compact = compact      # (pos_limbs, delta): the one-sided form
         self._device = {}
-        self._rows = {}
         self._mac_rhs = {}
         self._mac_rhs_host = None
 
@@ -239,15 +238,19 @@ class BootstrapKey:
             None if delta is None else to_device(delta, dev))
 
     def device(self, dev):
-        """The rows engine's key on ``dev`` (cached): (n, G, O, L, R) int64
-        for the exact form, the two-sided (n, 2, G, O, L, R) for the
-        rounded one.  From a numpy ``bk_coeff`` the form is
-        ``transform_type``'s, by the host transform; from the compact form
-        (a tensor key, a format-4 container) the -v side and the key are
-        derived on ``dev`` (``ops/transform.two_sided_limbs_device``,
-        ``rows_key_from_limbs``), equal to the transform of the same key.
-        On a CUDA device the key's int8 limb rows, which K1 and K3 read,
-        are prepared with it (:meth:`rows`)."""
+        """The rows engine's key on ``dev`` (cached), in the one form that
+        the rotation reads there (``ops/key_rows.key_form``).  First the
+        int64 key: (n, G, O, L, R) for the exact form, the two-sided (n, 2,
+        G, O, L, R) for the rounded one.  From a numpy ``bk_coeff`` the
+        form is ``transform_type``'s, by the host transform; from the
+        compact form (a tensor key, a format-4 container) the -v side and
+        the key are derived on ``dev``
+        (``ops/transform.two_sided_limbs_device``, ``rows_key_from_limbs``),
+        equal to the transform of the same key.  On the CPU that key is the
+        result; on a CUDA device the row kernel makes its int8 limb rows,
+        (n, L, G, O, 6, 64) exact or (n, L, G, O, 4, 64) rounded
+        (``ops/key_rows``), which K1 and K3 read, and the int64 key is
+        released."""
         dev = torch.device(dev)
         if dev not in self._device:
             with annotate("nufhe.keys.prepare"):
@@ -259,18 +262,8 @@ class BootstrapKey:
                         self.bk_coeff, dev, self.accum_params.transform_type)
                 else:
                     key = transform.rows_key_from_limbs(self.limbs(), dev)
-                self._rows[dev] = key_rows.prepare(key, key.dim() == 6)
-            self._device[dev] = key
+                self._device[dev] = key_rows.prepare(key, key.dim() == 6)
         return self._device[dev]
-
-    def rows(self, dev):
-        """The rows engine's key limb rows on ``dev`` (cached, prepared by
-        :meth:`device`): (n, L, G, O, 6, 64) int8 exact, (n, L, G, O, 4,
-        64) rounded (``ops/key_rows``); None off CUDA, where the rotation
-        runs the plain steps on the int64 key."""
-        dev = torch.device(dev)
-        self.device(dev)
-        return self._rows[dev]
 
     def mac_rhs(self, dev):
         """The lanes engine's key on ``dev`` (cached): the TPU's MAC

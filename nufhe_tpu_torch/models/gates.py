@@ -70,11 +70,10 @@ def check_shape(result, *args):
 
 
 def _broadcast_flat(ct, shape, lwe_size, device):
-    """Broadcast a ciphertext's tensors to ``shape``, flatten the batch."""
+    """Broadcast a ciphertext's (a, b) to ``shape``, flatten the batch."""
     a = ct.a.to(device).broadcast_to(shape + (lwe_size,)).reshape(-1, lwe_size)
     b = ct.b.to(device).broadcast_to(shape).reshape(-1)
-    cv = ct.current_variances.to(device).broadcast_to(shape).reshape(-1)
-    return a, b, cv
+    return a, b
 
 
 def _perf_kwargs(perf_params, device):
@@ -89,12 +88,9 @@ def _perf_kwargs(perf_params, device):
 
 
 def _bootstrap_key(cloud_key, device, lanes):
-    """The bootstrap key in the engine's form on ``device``, and the rows
-    engine's prepared key rows (None for the lanes engine)."""
+    """The bootstrap key in the engine's form on ``device``."""
     bk = cloud_key.bootstrap_key
-    if lanes:
-        return bk.mac_rhs(device), None
-    return bk.device(device), bk.rows(device)
+    return bk.mac_rhs(device) if lanes else bk.device(device)
 
 
 def _linear(inputs, const, coeffs):
@@ -102,11 +98,9 @@ def _linear(inputs, const, coeffs):
     ta = torch.zeros_like(inputs[0][0], dtype=torch.int64)
     tb = torch.full(inputs[0][1].shape, int(const), dtype=torch.int64,
                     device=ta.device)
-    tcv = torch.zeros_like(inputs[0][2])
-    for (ia, ib, icv), c in zip(inputs, coeffs):
+    for (ia, ib), c in zip(inputs, coeffs):
         ta = ta + int(c) * ia.to(torch.int64)
         tb = tb + int(c) * ib.to(torch.int64)
-        tcv = tcv + torch.tensor(float(c), dtype=torch.float32) ** 2 * icv
     return wrap_i32(ta), wrap_i32(tb)
 
 
@@ -130,10 +124,9 @@ def _bootstrap_gate(cloud_key, result, sources, const, coeffs, device,
         ta, tb = _linear(inputs, const, coeffs)
     ks_arrays, ks_meta = cloud_key.keyswitch_key.device(device)
     perf = _perf_kwargs(perf_params, device)
-    bk_dev, bk_rows = _bootstrap_key(cloud_key, device, perf.pop("lanes"))
+    bk_dev = _bootstrap_key(cloud_key, device, perf.pop("lanes"))
     ra, rb, rcv = dboot.bootstrap_device(
-        ta, tb, bk_dev, ks_arrays, ks_meta, _MU, params.tgsw_params,
-        bk_rows=bk_rows, **perf)
+        ta, tb, bk_dev, ks_arrays, ks_meta, _MU, params.tgsw_params, **perf)
     return _store(result, shape, ra, rb, rcv)
 
 
@@ -233,7 +226,7 @@ def gate_mux(cloud_key, result, a, b, c, device, perf_params=None):
     and_const = int(phase_to_t32(-1, 8))
     mux_const = int(phase_to_t32(1, 8))
     with annotate("nufhe.gate.linear"):
-        (aa, ab, _), (ba, bb, _), (ca, cb, _) = (
+        (aa, ab), (ba, bb), (ca, cb) = (
             _broadcast_flat(src, shape, lwe_size, device)
             for src in (a, b, c))
         bsz = ab.shape[0]
@@ -243,10 +236,10 @@ def gate_mux(cloud_key, result, a, b, c, device, perf_params=None):
                                     and_const - _i64(ab) + _i64(cb)]))
     ks_arrays, ks_meta = cloud_key.keyswitch_key.device(device)
     perf = _perf_kwargs(perf_params, device)
-    bk_dev, bk_rows = _bootstrap_key(cloud_key, device, perf.pop("lanes"))
+    bk_dev = _bootstrap_key(cloud_key, device, perf.pop("lanes"))
     ex_a, ex_b, ex_cv = dboot.bootstrap_device(
         lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, _MU, params.tgsw_params,
-        no_keyswitch=True, bk_rows=bk_rows, **perf)
+        no_keyswitch=True, **perf)
     ta = wrap_i32(_i64(ex_a[:bsz]) + _i64(ex_a[bsz:]))
     tb = wrap_i32(mux_const + _i64(ex_b[:bsz]) + _i64(ex_b[bsz:]))
     ra, rb, rcv = dlwe.lwe_keyswitch(ks_arrays, ks_meta, ta, tb,

@@ -9,10 +9,12 @@ port's layout:
 
 - ``acc``: (B, mask1, N) int32;
 - ``bara_t``: (n, B) int32 in [0, 2N), one row of rotation amounts a step;
-- ``key``: the whole transformed key of ``ops/transform``, int64:
-  (n, G, O, L, R) exact or (n, 2, G, O, L, R) rounded;
-- ``rows``: the key's int8 limb rows (``ops/key_rows``), prepared with the
-  key, which the kernel copies into shared memory a slot at a time.
+- ``key``: the whole rows-engine key in its device's form
+  (``ops/key_rows.key_form``): on the CPU, and for the plain version on
+  any device, the transformed key of ``ops/transform``, int64, (n, G, O,
+  L, R) exact or (n, 2, G, O, L, R) rounded; on CUDA its int8 limb rows
+  (``ops/key_rows``), prepared with the key, which the kernel copies into
+  shared memory a slot at a time.
 """
 
 import torch
@@ -36,50 +38,45 @@ def blind_rotate_chunk_plain(acc, bara_t, key, start, chunk, *, offset,
     return acc
 
 
-def blind_rotate_chunk(acc, bara_t, key, start, chunk, *, offset, log2_base,
-                       rows=None):
-    """K3: steps [start, start + chunk) of the blind rotation.  A CUDA
-    tensor runs the kernel on ``rows``, the key's prepared rows (required
-    there); a CPU tensor the plain version.
-    Returns a new tensor (``acc`` is not updated in place)."""
-    global launches, steps
-    mask1 = cmux.check_acc(acc, "blind_rotate_chunk")
+def check_chunk(name, acc, bara_t, key, start, chunk, shape=None):
+    """The inputs of a chunk-shaped launch (K3, K6, K11, K12): ``acc``
+    (``cmux.check_acc``), int32 rotation amounts ``bara_t`` (n, B), the
+    whole key in its device's form (``key_rows.key_form``, lead (n,)) with
+    O = mask1, steps [start, start + chunk) inside the rotation, one
+    device; (mask1, l) = ``shape`` for a kernel built for that one.
+    Returns (rounded, mask1, l, start, chunk)."""
+    mask1 = cmux.check_acc(acc, name)
     if bara_t.dtype != torch.int32:
-        raise TypeError("blind_rotate_chunk takes int32 rotation amounts")
+        raise TypeError("%s takes int32 rotation amounts" % name)
     if bara_t.dim() != 2 or bara_t.shape[1] != acc.shape[0]:
         raise ValueError("bara_t must be (n, B), got %s for B = %d"
                          % (tuple(bara_t.shape), acc.shape[0]))
     n = bara_t.shape[0]
-    rounded = cmux.check_key(key, (n,), "blind_rotate_chunk", mask1)
     start, chunk = int(start), int(chunk)
     if chunk < 1 or start < 0 or start + chunk > n:
         raise ValueError("steps [%d, %d) are not inside the %d-step rotation"
                          % (start, start + chunk, n))
     if not (acc.device == bara_t.device == key.device):
         raise ValueError("acc, bara_t and key must be on one device")
+    form = kr.key_form(key, (n,), name, mask1)
+    return cmux.check_shape(name, form, shape) + (start, chunk)
+
+
+def blind_rotate_chunk(acc, bara_t, key, start, chunk, *, offset, log2_base):
+    """K3: steps [start, start + chunk) of the blind rotation.  A CUDA
+    tensor runs the kernel on the key's int8 rows; a CPU tensor the plain
+    version on the int64 key (``key_rows.key_form``).  Returns a new
+    tensor (``acc`` is not updated in place)."""
+    global launches, steps
+    rounded, mask1, decomp_length, start, chunk = check_chunk(
+        "blind_rotate_chunk", acc, bara_t, key, start, chunk)
     if acc.device.type == 'cpu':
         return blind_rotate_chunk_plain(acc, bara_t, key, start, chunk,
                                         offset=offset, log2_base=log2_base)
-    if acc.device.type != 'cuda':
-        raise ValueError("blind_rotate_chunk runs on CUDA or CPU, not %s"
-                         % acc.device)
-    if not (acc.is_contiguous() and bara_t.is_contiguous()
-            and key.is_contiguous()):
-        raise ValueError("blind_rotate_chunk takes contiguous tensors")
-    if not 1 <= log2_base <= 16:
-        raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
-    _, decomp_length = cmux.kernel_shape(key, mask1, "blind_rotate_chunk")
-    rows = kr.launch_rows(key, rounded, rows, start, chunk,
-                          "blind_rotate_chunk")
-    from ..kernels import build
-    fn = build.entry("blind_rotate_chunk")
-    out = torch.empty_like(acc)
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), bara_t.data_ptr(),
-              rows.data_ptr(), acc.shape[0], start, chunk, mask1, decomp_length,
-              int(offset) & 0xFFFFFFFF, int(log2_base), int(rounded),
-              acc.device.index, stream)
-    build.check("blind_rotate_chunk", code)
+    out = cmux.launch("blind_rotate_chunk", acc, bara_t,
+                      key[start:start + chunk],
+                      (start, chunk, mask1, decomp_length), offset=offset,
+                      log2_base=log2_base, rounded=rounded)
     launches += 1
     steps += chunk
     return out

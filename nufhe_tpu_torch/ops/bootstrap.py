@@ -2,15 +2,18 @@
 keyswitch (``nufhe_tpu/ops/bootstrap.py``'s counterpart), in both engine
 modes.  The key's form selects the blind rotation's engine:
 
-- the rows engine (int64 key of ``ops/transform.bootstrap_key_transformed``):
-  with ``chunk_steps > 1``, ``n // chunk_steps`` launches of the chunked
-  kernel K3 and, where the chunk does not divide n, one more of the
+- the rows engine (``BootstrapKey.device``: the int8 limb rows of
+  ``ops/key_rows`` on CUDA, the int64 key of
+  ``ops/transform.bootstrap_key_transformed`` on the CPU): with
+  ``chunk_steps > 1``, ``n // chunk_steps`` launches of the chunked kernel
+  K3 and, where the chunk does not divide n, one more of the
   ``n % chunk_steps`` steps left; with ``chunk_steps == 1``, n launches of
   the step kernel K1;
-- the lanes engine (int8 key of ``ops/tgsw.prepare_bootstrap_key_device``,
-  the JAX package's ``flat_engine`` path, ``bootstrap.py:249-262``): the
-  accumulator in q-layout and n launches of the lanes step K4;
-  ``chunk_steps`` does not apply.
+- the lanes engine (the (n, L, C, Q) int8 key of
+  ``ops/tgsw.prepare_bootstrap_key_device``, the JAX package's
+  ``flat_engine`` path, ``bootstrap.py:249-262``): the accumulator in
+  q-layout and n launches of the lanes step K4; ``chunk_steps`` does not
+  apply.
 
 Tensor parallelism (the JAX package's ``axis_name``/``slot_axis_name``,
 ``bootstrap.py:124-173``) runs the lanes engine with each step split around
@@ -28,6 +31,7 @@ import torch
 from . import blind_rotate as brc
 from . import cmux
 from . import flat_engine as fe
+from . import key_rows as kr
 from . import lanes_step as lanes
 from . import lwe as dlwe
 from . import tlwe as dtlwe
@@ -64,13 +68,14 @@ def round_phase_coarse(bara, bits: int, n_poly: int):
 
 @spanned("nufhe.blind_rotate")
 def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
-                 exact=True, group=None, slot_group=None, bk_rows=None):
+                 exact=True, group=None, slot_group=None):
     """ACC <- BK_i (x) [(X^{bara_i}-1) ACC] + ACC over all n key bits.
 
     :param accum_a: (B, mask_size+1, N) int32.
-    :param bk_dev: the rows engine's transformed key
-        (``ops/transform.bootstrap_key_transformed``): (n, G, O, L, R) int64
-        when ``exact``, else (n, 2, G, O, L, R); or the lanes engine's
+    :param bk_dev: the rows engine's key in its device's form
+        (``ops/key_rows.key_form``: on CUDA the int8 rows, (n, L, G, O, 6,
+        64) when ``exact``, else (n, L, G, O, 4, 64); on the CPU the int64
+        key, (n, G, O, L, R) or (n, 2, G, O, L, R)); or the lanes engine's
         (n, L, C, Q) int8 key (``ops/tgsw.prepare_bootstrap_key_device``).
     :param bara: (B, n) int32 in [0, 2N).
     :param chunk_steps: steps per K3 launch, the last launch taking the
@@ -81,12 +86,9 @@ def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
         step's channels are summed over the process group.
     :param slot_group: slots tensor parallelism: ``bk_dev`` is this rank's
         slot slice (n, L/size, C, Q); each step's channels are gathered.
-    :param bk_rows: the rows engine's prepared key rows (``ops/key_rows``,
-        ``BootstrapKey.rows``), which K1 and K3 read: required for the
-        rows key on CUDA.
     """
     n = bara.shape[-1]
-    lanes_key = bk_dev.dtype == torch.int8
+    lanes_key = bk_dev.dtype == torch.int8 and bk_dev.dim() == 4
     if group is not None and slot_group is not None:
         raise ValueError("group (limbs) and slot_group (slots) exclude each "
                          "other")
@@ -101,8 +103,8 @@ def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
     if lanes_key:
         rounded = lanes.check_key(bk_dev, (n,), "blind_rotate")
     else:
-        rounded = cmux.check_key(bk_dev, (n,), "blind_rotate",
-                                 accum_a.shape[-2])
+        rounded = kr.key_form(bk_dev, (n,), "blind_rotate",
+                              accum_a.shape[-2])[0]
     if rounded == exact:
         raise ValueError("the key's form does not match the %s engine"
                          % ("exact" if exact else "rounded-key"))
@@ -118,12 +120,10 @@ def blind_rotate(accum_a, bk_dev, bara, tgsw_params, chunk_steps=1,
     if chunk > 1:
         for start in range(0, n, chunk):
             acc = brc.blind_rotate_chunk(acc, bara_t, bk_dev, start,
-                                         min(chunk, n - start),
-                                         rows=bk_rows, **kw)
+                                         min(chunk, n - start), **kw)
     else:
         for i in range(n):
-            acc = cmux.cmux_step(acc, bara_t[i], bk_dev[i], **kw,
-                                 rows=None if bk_rows is None else bk_rows[i])
+            acc = cmux.cmux_step(acc, bara_t[i], bk_dev[i], **kw)
     return acc
 
 
@@ -151,14 +151,12 @@ def _blind_rotate_tp(accum_a, bk_shard, bara, tgsw_params, exact, group,
 @spanned("nufhe.bootstrap")
 def bootstrap_device(lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, mu,
                      tgsw_params, no_keyswitch=False, chunk_steps=1,
-                     coarse_phase_bits=0, group=None, slot_group=None,
-                     bk_rows=None):
+                     coarse_phase_bits=0, group=None, slot_group=None):
     """Full gate bootstrap: LWE(mu) if phase > 0 else LWE(-mu), fresh noise.
     Reference: ``nufhe/bootstrap.py:154-229``.  The engine mode comes from
     ``tgsw_params.tlwe_params.transform_type``, the engine (rows or lanes)
     from the key's form (:func:`blind_rotate`); ``group``/``slot_group``
-    split the lanes engine's steps over a process group, ``bk_rows`` are
-    the rows engine's prepared key rows (:func:`blind_rotate`).
+    split the lanes engine's steps over a process group.
 
     :param lwe_a: (B, n_in) int32; ``lwe_b``: (B,) int32.
     :returns: (a, b, cv) in the keyswitched (or extracted) LWE space.
@@ -183,7 +181,7 @@ def bootstrap_device(lwe_a, lwe_b, bk_dev, ks_arrays, ks_meta, mu,
         accum, _ = dtlwe.tlwe_noiseless_trivial(testvect, mask_size)
     accum = blind_rotate(accum, bk_dev, bara, tgsw_params,
                          chunk_steps=chunk_steps, exact=exact, group=group,
-                         slot_group=slot_group, bk_rows=bk_rows)
+                         slot_group=slot_group)
     with annotate("nufhe.extract"):
         ex_a, ex_b = dtlwe.tlwe_extract_lwe_samples(accum)
 

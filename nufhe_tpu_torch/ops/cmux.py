@@ -9,14 +9,16 @@ negacyclic in Z[X]/(N=1024), mod 2^32 — the function of the TPU kernel
 
 - ``acc``: (B, mask1, N) int32, batch-major;
 - ``p``: (B,) int32 in [0, 2N);
-- ``key_row``: one row of ``ops/transform.bootstrap_key_transformed``,
-  int64: (G = mask1*l, O = mask1, L, R) for the exact engine, or
-  (2, G, O, L, R) for the rounded-key engine, whose MAC reads side 1 on
-  the terms that wrap around the negacyclic convolution.  The row's shape
-  selects the form; the accumulator gives mask1 and the key G = mask1*l.
-  The kernel is built for the (mask1, l) pairs of
-  ``ops/transform.KERNEL_SHAPES`` and raises on any other.  It reads the
-  row's int8 limb rows (``ops/key_rows``), prepared with the key.
+- ``key_row``: one step of the rows engine's key in its device's form
+  (``ops/key_rows.key_form``).  On the CPU, and for the plain version on
+  any device, a row of ``ops/transform.bootstrap_key_transformed``, int64:
+  (G = mask1*l, O = mask1, L, R) for the exact engine, or (2, G, O, L, R)
+  for the rounded-key engine, whose MAC reads side 1 on the terms that
+  wrap around the negacyclic convolution.  On CUDA the row's int8 limb
+  rows (``ops/key_rows``), prepared with the key, which the kernel reads.
+  The shape selects the form; the accumulator gives mask1 and the key G =
+  mask1*l.  The kernel is built for the (mask1, l) pairs of
+  ``ops/transform.KERNEL_SHAPES``, and the wrapper raises on any other.
 """
 
 import torch
@@ -87,71 +89,68 @@ def check_acc(acc, name):
     return acc.shape[1]
 
 
-def check_key(key, rows_shape, name, mask1=None):
-    """``key`` is int64 of shape ``rows_shape`` + one row form, (G, O, L,
-    R) exact or (2, G, O, L, R) rounded, with O = mask1 (the
-    accumulator's, when given) dividing G; returns whether it is the
-    rounded form."""
-    if key.dtype != torch.int64:
-        raise TypeError("%s takes an int64 key" % name)
-    tail = tuple(key.shape[len(rows_shape):])
-    rounded = len(tail) == 5
-    g_size, o_size = tail[-4:-2] if len(tail) in (4, 5) else (0, 0)
-    if tuple(key.shape[:len(rows_shape)]) != tuple(rows_shape) \
-            or len(tail) not in (4, 5) or (rounded and tail[0] != 2) \
-            or tail[-2:] != (tf.L, tf.R) or not o_size \
-            or g_size % o_size or (mask1 is not None and o_size != mask1):
-        raise ValueError("%s: key must be %s + (G, O, %d, %d) or (2, G, O, "
-                         "%d, %d) with O = mask1%s dividing G, got %s"
-                         % (name, tuple(rows_shape), tf.L, tf.R, tf.L, tf.R,
-                            "" if mask1 is None else " = %d" % mask1,
-                            tuple(key.shape)))
-    return rounded
-
-
-def kernel_shape(key, mask1, name):
-    """(mask1, l) of a checked key, for a kernel launch; raises ValueError
-    for a pair that no kernel instantiates."""
-    decomp_length = key.shape[-4] // mask1
-    if (mask1, decomp_length) not in tf.KERNEL_SHAPES:
-        raise ValueError("the %s kernel takes (mask1, l) in %s, not (%d, %d)"
-                         % (name, tf.KERNEL_SHAPES, mask1, decomp_length))
-    return mask1, decomp_length
-
-
-def cmux_step(acc, p, key_row, *, offset, log2_base, rows=None):
-    """K1: one CMUX step.  A CUDA tensor runs the kernel; a CPU tensor the
-    plain version.  Returns a new tensor.  ``rows``: the key row's
-    prepared rows (``ops/key_rows``), which the kernel reads: required on
-    CUDA."""
-    global launches
-    mask1 = check_acc(acc, "cmux_step")
-    rounded = check_key(key_row, (), "cmux_step", mask1)
+def check_step(name, acc, p, key_row, shape=None):
+    """The inputs of a step-shaped launch (K1, K5, K8, K9, K10): ``acc``
+    (:func:`check_acc`), int32 powers ``p`` (B,) and one step's key in its
+    device's form (``key_rows.key_form``) with O = mask1, on one device;
+    (mask1, l) = ``shape`` for a kernel built for that one.  Returns
+    (rounded, mask1, l)."""
+    mask1 = check_acc(acc, name)
     if p.dtype != torch.int32:
-        raise TypeError("cmux_step takes int32 powers")
+        raise TypeError("%s takes int32 powers" % name)
     if p.shape != (acc.shape[0],):
         raise ValueError("p must be (B,), got %s" % (tuple(p.shape),))
     if not (acc.device == p.device == key_row.device):
         raise ValueError("acc, p and key row must be on one device")
+    return check_shape(name, kr.key_form(key_row, (), name, mask1), shape)
+
+
+def check_shape(name, form, shape):
+    """``form`` (rounded, mask1, l), with (mask1, l) = ``shape`` unless it
+    is None."""
+    if shape is not None and form[1:] != shape:
+        raise ValueError("%s takes (mask1, l) = %s, got %s"
+                         % (name, shape, form[1:]))
+    return form
+
+
+def launch(entry, acc, x, rows, args, *, offset, log2_base, rounded=None,
+           out_polys=None):
+    """Launch the K1/K3-family CUDA entry ``entry`` (``kernels/build.py``) on
+    CUDA tensors: (acc, out, x, rows, B, *args, offset, log2_base[,
+    rounded], device, stream), where ``x`` is a step's powers p (K1, K5,
+    K8-K10) or the rotation amounts bara_t (K3, K6, K11, K12), ``rows``
+    the key rows that the launch reads (checked by ``key_rows.key_form``)
+    and ``args`` the entry's own integers; ``rounded`` None for an entry of
+    the exact form alone (K5, K8), which takes no form argument.  Returns
+    the output: like ``acc``, or (B, out_polys, N) int32."""
+    if not (acc.is_contiguous() and x.is_contiguous()):
+        raise ValueError("%s takes contiguous tensors" % entry)
+    if not 1 <= log2_base <= 16:
+        raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
+    from ..kernels import build
+    fn = build.entry(entry)
+    out = torch.empty_like(acc) if out_polys is None else torch.empty(
+        (acc.shape[0], out_polys, tf.N), dtype=torch.int32, device=acc.device)
+    form = () if rounded is None else (int(rounded),)
+    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    code = fn(acc.data_ptr(), out.data_ptr(), x.data_ptr(), rows.data_ptr(),
+              acc.shape[0], *args, int(offset) & 0xFFFFFFFF, int(log2_base),
+              *form, acc.device.index, stream)
+    build.check(entry, code)
+    return out
+
+
+def cmux_step(acc, p, key_row, *, offset, log2_base):
+    """K1: one CMUX step.  A CUDA tensor runs the kernel on the key row's
+    int8 rows; a CPU tensor the plain version on its int64 row
+    (``key_rows.key_form``).  Returns a new tensor."""
+    global launches
+    rounded, mask1, decomp_length = check_step("cmux_step", acc, p, key_row)
     if acc.device.type == 'cpu':
         return cmux_step_plain(acc, p, key_row, offset=offset,
                                log2_base=log2_base)
-    if acc.device.type != 'cuda':
-        raise ValueError("cmux_step runs on CUDA or CPU, not %s" % acc.device)
-    if not (acc.is_contiguous() and p.is_contiguous()
-            and key_row.is_contiguous()):
-        raise ValueError("cmux_step takes contiguous tensors")
-    if not 1 <= log2_base <= 16:
-        raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
-    _, decomp_length = kernel_shape(key_row, mask1, "cmux_step")
-    rows = kr.launch_rows(key_row, rounded, rows, None, 1, "cmux_step")
-    from ..kernels import build
-    fn = build.entry("cmux_step")
-    out = torch.empty_like(acc)
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), rows.data_ptr(),
-              acc.shape[0], mask1, decomp_length, int(offset) & 0xFFFFFFFF,
-              int(log2_base), int(rounded), acc.device.index, stream)
-    build.check("cmux_step", code)
+    out = launch("cmux_step", acc, p, key_row, (mask1, decomp_length),
+                 offset=offset, log2_base=log2_base, rounded=rounded)
     launches += 1
     return out

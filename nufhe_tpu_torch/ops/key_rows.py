@@ -14,6 +14,9 @@ and the kernels copy a slot's rows into shared memory.
   R) exact or (..., 2, G, O, L, R) rounded;
 - rows: int8 (..., L, G, O, 6, 64) exact or (..., L, G, O, 4, 64)
   rounded, slot p at index p of the L axis.
+
+The rows are the rows engine's key on a CUDA device, the int64 key on the
+CPU (:func:`prepare`); :func:`key_form` is the one reader of that choice.
 """
 
 import torch
@@ -96,28 +99,62 @@ def key_rows(key, rounded):
 
 
 def prepare(key, rounded):
-    """The rows that K1 and K3 read for ``key``, prepared with it: the row
-    kernel's on a CUDA key; None elsewhere, where the rotation runs the
-    plain steps on the int64 key."""
-    return key_rows(key, rounded) if key.device.type == 'cuda' else None
+    """The rows engine's key on ``key``'s device: on a CUDA key its rows,
+    by the row kernel (the int64 ``key`` is then the caller's to drop);
+    elsewhere ``key`` itself, whose rotation runs the plain steps."""
+    return key_rows(key, rounded) if key.device.type == 'cuda' else key
 
 
-def launch_rows(key, rounded, rows, start, chunk, name):
-    """The rows a K1/K3-shaped launch reads for steps [start, start +
-    chunk) of ``key`` ((n,)-rows): ``rows[start:start + chunk]`` of the
-    key's prepared rows, checked; a launch without them is refused.  A
-    one-step launch (K1) passes ``key`` as its row and ``start`` None."""
-    one = start is None
-    if rows is None:
-        raise ValueError("%s: a launch takes the key's prepared rows "
-                         "(ops/key_rows.key_rows)" % name)
-    want = rows_shape(key, rounded)
-    if rows.dtype != torch.int8 or tuple(rows.shape) != want:
-        raise ValueError("%s: the key's rows must be int8 %s, got %s %s"
-                         % (name, want, rows.dtype, tuple(rows.shape)))
-    if rows.device != key.device or not rows.is_contiguous() \
-            or rows.data_ptr() % 16:
-        raise ValueError("%s: the rows must be contiguous and 16-byte "
-                         "aligned, on the key's device" % name)
-    return rows if one else rows[start:start + chunk]
+def key_form(key, lead, name, mask1=None):
+    """The rows engine's key as a K1/K3-family wrapper takes it, checked:
+    on a CUDA device the rows, int8 ``lead`` + (L, G, O, 6, 64) exact or
+    ``lead`` + (L, G, O, 4, 64) rounded, contiguous and 16-byte aligned,
+    of a (mask1, l) that a kernel instantiates (``transform.KERNEL_SHAPES``);
+    on the CPU the int64 key, ``lead`` + (G, O, L, R) exact or ``lead`` +
+    (2, G, O, L, R) rounded, of any (mask1, l), which the plain versions
+    take.  ``lead`` is (n,) for a whole key, () for one step's row; O
+    divides G and is ``mask1`` when given.  Returns (rounded, mask1, l);
+    raises for anything else."""
+    kind = key.device.type
+    if kind not in ('cuda', 'cpu'):
+        raise ValueError("%s runs on CUDA or CPU, not %s" % (name, key.device))
+    return _read_form(key, lead, name, mask1, kind == 'cuda')
 
+
+def _read_form(key, lead, name, mask1, rows):
+    """:func:`key_form` on any device: the rows if ``rows``, else the int64
+    key."""
+    if key.dtype != (torch.int8 if rows else torch.int64):
+        raise TypeError("%s takes the key as %s, got %s"
+                        % (name, "its int8 rows on CUDA" if rows
+                           else "int64 on the CPU", key.dtype))
+    lead = tuple(lead)
+    tail = tuple(key.shape[len(lead):])
+    if rows:
+        form = "(%d, G, O, 6 or 4, 64)" % tf.L
+        ok = len(tail) == 5 and tail[0] == tf.L and tail[3] in (4, 6) \
+            and tail[4] == 64
+        rounded = ok and tail[3] == 4
+        g_size, o_size = tail[1:3] if ok else (0, 0)
+    else:
+        form = "(G, O, %d, %d) or (2, G, O, %d, %d)" % ((tf.L, tf.R) * 2)
+        rounded = len(tail) == 5
+        ok = len(tail) in (4, 5) and (not rounded or tail[0] == 2) \
+            and tail[-2:] == (tf.L, tf.R)
+        g_size, o_size = tail[-4:-2] if ok else (0, 0)
+    if tuple(key.shape[:len(lead)]) != lead or not o_size or g_size % o_size \
+            or (mask1 is not None and o_size != mask1):
+        raise ValueError("%s: key must be %s + %s with O = mask1%s dividing "
+                         "G, got %s"
+                         % (name, lead, form,
+                            "" if mask1 is None else " = %d" % mask1,
+                            tuple(key.shape)))
+    shape = (o_size, g_size // o_size)
+    if rows:
+        if not key.is_contiguous() or key.data_ptr() % 16:
+            raise ValueError("%s: the key's rows must be contiguous and "
+                             "16-byte aligned" % name)
+        if shape not in tf.KERNEL_SHAPES:
+            raise ValueError("the %s kernel takes (mask1, l) in %s, not %s"
+                             % (name, tf.KERNEL_SHAPES, shape))
+    return (rounded,) + shape

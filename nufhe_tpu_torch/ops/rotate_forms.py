@@ -13,12 +13,16 @@ form computes the CMUX steps, so the plain version is the steps with
 :func:`barrel_rotate_q` as their rotation.
 
 In the port's layout: ``acc`` (B, 2, N) int32, ``bara_t`` (n, B) int32 in
-[0, 2N), ``key`` (n, 4, 2, L, R) int64 exact or (n, 2, 4, 2, L, R) rounded.
+[0, 2N), ``key`` the rows engine's key in its device's form
+(``ops/key_rows.key_form``): for the plain version (n, 4, 2, L, R) int64
+exact or (n, 2, 4, 2, L, R) rounded.
 """
 
 import torch
 
 from ..numeric import wrap_i32
+from . import blind_rotate as brc
+from . import cmux
 from . import flat_engine as fe
 from . import step_context as sc
 from . import step_parts as sp
@@ -99,22 +103,21 @@ def rotate_form_plain(form, acc, bara_t, key, start, chunk, *, offset,
                          log2_base=log2_base, rotate=barrel_rotate_q)
 
 
-def rotate_form(form, acc, bara_t, key, start, chunk, *, offset, log2_base,
-                rows=None):
+def rotate_form(form, acc, bara_t, key, start, chunk, *, offset, log2_base):
     """K12: steps [start, start + chunk) with the rotation in ``form``.  A
-    CUDA tensor runs the kernel; a CPU tensor the plain version.  Returns a
-    new tensor.  ``rows``: the key's prepared rows (``ops/key_rows``),
-    which the kernel reads: required on CUDA."""
+    CUDA tensor runs the kernel on the key's rows; a CPU tensor the plain
+    version on the int64 key (``ops/key_rows.key_form``).  Returns a new
+    tensor."""
     global launches
     if form not in FORMS:
         raise ValueError("unknown form %r; the forms are %s" % (form, FORMS))
-    rounded, start, chunk = sc.check_chunk("rotate_forms", acc, bara_t, key,
-                                           start, chunk)
+    rounded, _, _, start, chunk = brc.check_chunk(
+        "rotate_forms", acc, bara_t, key, start, chunk, (MASK1, DECOMP))
     if acc.device.type == 'cpu':
         return rotate_form_plain(form, acc, bara_t, key, start, chunk,
                                  offset=offset, log2_base=log2_base)
-    out = sc.launch_chunk("rotate_forms", FORMS.index(form), acc, bara_t, key,
-                          start, chunk, rounded, offset=offset,
-                          log2_base=log2_base, rows=rows)
+    out = cmux.launch("rotate_forms", acc, bara_t, key[start:start + chunk],
+                      (start, chunk, FORMS.index(form)), offset=offset,
+                      log2_base=log2_base, rounded=rounded)
     launches += 1
     return out

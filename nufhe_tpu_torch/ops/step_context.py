@@ -33,16 +33,18 @@ in ``ops/flat_engine``'s stage functions:
   so FULL less it is the cost of copying every slot's rows a step.
 
 In the port's layout: ``acc`` (B, 2, N) int32, ``bara_t`` (n, B) int32 in
-[0, 2N), ``key`` (n, 4, 2, L, R) int64 exact or (n, 2, 4, 2, L, R) rounded
+[0, 2N), ``key`` the rows engine's key in its device's form
+(``ops/key_rows.key_form``): for the plain version (n, 4, 2, L, R) int64
+exact or (n, 2, 4, 2, L, R) rounded
 (``ops/transform.bootstrap_key_transformed``).
 """
 
 import torch
 
 from ..numeric import wrap_i32
+from . import blind_rotate as brc
 from . import cmux
 from . import flat_engine as fe
-from . import key_rows as kr
 from . import step_parts as sp
 
 VARIANTS = ("FULL", "noop step", "dot only", "no rotation", "no forward",
@@ -142,77 +144,23 @@ def step_context_plain(variant, acc, bara_t, key, start, chunk, *, offset,
     return fe.n_from_q(acc_q.reshape(bsz, MASK1, N))
 
 
-def check_chunk(name, acc, bara_t, key, start, chunk):
-    """The inputs of a K3-shaped experiment kernel (K6, K11, K12): acc
-    (B, 2, N) int32, bara_t (n, B) int32, an (n,)-row key of l = 2 in
-    either form, steps [start, start + chunk) inside the rotation, one
-    device.  Returns (rounded, start, chunk)."""
-    if cmux.check_acc(acc, name) != MASK1:
-        raise ValueError("%s takes mask1 = %d, got %d"
-                         % (name, MASK1, acc.shape[1]))
-    if bara_t.dtype != torch.int32 or bara_t.dim() != 2 \
-            or bara_t.shape[1] != acc.shape[0]:
-        raise ValueError("bara_t must be int32 (n, B), got %s %s"
-                         % (bara_t.dtype, tuple(bara_t.shape)))
-    n = bara_t.shape[0]
-    rounded = cmux.check_key(key, (n,), name, MASK1)
-    if key.shape[-4] != G:
-        raise ValueError("%s takes l = %d, got a key of G = %d"
-                         % (name, DECOMP, key.shape[-4]))
-    start, chunk = int(start), int(chunk)
-    if chunk < 1 or start < 0 or start + chunk > n:
-        raise ValueError("steps [%d, %d) are not inside the %d-step rotation"
-                         % (start, start + chunk, n))
-    if not (acc.device == bara_t.device == key.device):
-        raise ValueError("acc, bara_t and key must be on one device")
-    return rounded, start, chunk
-
-
-def launch_chunk(name, index, acc, bara_t, key, start, chunk, rounded, *,
-                 offset, log2_base, rows=None):
-    """Launch kernel ``name`` (a K3-shaped launcher: acc, out, bara_t, the
-    key rows of the launch's steps, batch, start, chunk, index, offset,
-    log2_base, rounded, device, stream) on CUDA tensors; returns the
-    output.  ``rows``: the key's prepared rows (``ops/key_rows``),
-    required."""
-    if acc.device.type != 'cuda':
-        raise ValueError("%s runs on CUDA or CPU, not %s" % (name, acc.device))
-    if not (acc.is_contiguous() and bara_t.is_contiguous()
-            and key.is_contiguous()):
-        raise ValueError("%s takes contiguous tensors" % name)
-    if not 1 <= log2_base <= 16:
-        raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
-    rows = kr.launch_rows(key, rounded, rows, start, chunk, name)
-    from ..kernels import build
-    fn = build.entry(name)
-    out = torch.empty_like(acc)
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), bara_t.data_ptr(),
-              rows.data_ptr(), acc.shape[0], start, chunk, index,
-              int(offset) & 0xFFFFFFFF, int(log2_base), int(rounded),
-              acc.device.index, stream)
-    build.check(name, code)
-    return out
-
-
 def step_context(variant, acc, bara_t, key, start, chunk, *, offset,
-                 log2_base, rows=None):
+                 log2_base):
     """K6: steps [start, start + chunk) of ``variant``.  A CUDA tensor runs
-    the kernel; a CPU tensor the plain version.  Returns a new tensor.
-    ``rows``: the key's prepared rows (``ops/key_rows``), which the kernel
-    reads: required on CUDA."""
+    the kernel on the key's rows; a CPU tensor the plain version on the
+    int64 key (``ops/key_rows.key_form``).  Returns a new tensor."""
     global launches
     if variant not in VARIANTS:
         raise ValueError("unknown variant %r; the variants are %s"
                          % (variant, VARIANTS))
-    rounded, start, chunk = check_chunk("step_context", acc, bara_t, key,
-                                        start, chunk)
+    rounded, _, _, start, chunk = brc.check_chunk(
+        "step_context", acc, bara_t, key, start, chunk, (MASK1, DECOMP))
     if acc.device.type == 'cpu':
         return step_context_plain(variant, acc, bara_t, key, start, chunk,
                                   offset=offset, log2_base=log2_base)
-    out = launch_chunk("step_context", VARIANTS.index(variant), acc, bara_t,
-                       key, start, chunk, rounded, offset=offset,
-                       log2_base=log2_base, rows=rows)
+    out = cmux.launch("step_context", acc, bara_t, key[start:start + chunk],
+                      (start, chunk, VARIANTS.index(variant)), offset=offset,
+                      log2_base=log2_base, rounded=rounded)
     launches += 1
     return out
 

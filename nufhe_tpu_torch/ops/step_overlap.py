@@ -11,8 +11,9 @@ the halves overlap in disjoint warp groups (``kernels/csrc/
 step_overlap.cu``).  Exact key, (mask1, l) = (2, 2), as the tool runs.
 
 In the port's layout: ``acc`` (B, 2, N) int32, ``p`` (B,) int32 in
-[0, 2N), ``key_row`` (4, 2, L, R) int64 (one row of
-``ops/transform.bootstrap_key_transformed``, 'NTT').
+[0, 2N), ``key_row`` one step of the key in its device's form
+(``ops/key_rows.key_form``), for the plain version (4, 2, L, R) int64 (one
+row of ``ops/transform.bootstrap_key_transformed``, 'NTT').
 """
 
 import torch
@@ -20,7 +21,6 @@ import torch
 from ..numeric import wrap_i32
 from . import cmux
 from . import flat_engine as fe
-from . import key_rows as kr
 from . import step_parts as sp
 
 MASK1, DECOMP = 2, 2
@@ -56,45 +56,17 @@ def step_overlap_plain(acc, p, key_row, *, offset, log2_base):
     return fe.n_from_q(out.reshape(bsz, MASK1, N))
 
 
-def step_overlap(acc, p, key_row, *, offset, log2_base, rows=None):
+def step_overlap(acc, p, key_row, *, offset, log2_base):
     """K8: one exact CMUX step in the split schedule.  A CUDA tensor runs
-    the kernel; a CPU tensor the plain version.  Returns a new tensor.
-    ``rows``: the key row's prepared rows (``ops/key_rows``), which the
-    kernel reads: required on CUDA."""
+    the kernel on the key row's rows; a CPU tensor the plain version on its
+    int64 row (``ops/key_rows.key_form``).  Returns a new tensor."""
     global launches
-    if cmux.check_acc(acc, "step_overlap") != MASK1:
-        raise ValueError("step_overlap takes mask1 = %d, got %d"
-                         % (MASK1, acc.shape[1]))
-    if cmux.check_key(key_row, (), "step_overlap", MASK1) \
-            or key_row.shape[0] != G:
-        raise ValueError("step_overlap takes one exact key row (%d, %d, %d, "
-                         "%d), got %s" % (G, MASK1, L, R,
-                                          tuple(key_row.shape)))
-    if p.dtype != torch.int32 or p.shape != (acc.shape[0],):
-        raise ValueError("p must be int32 (B,), got %s %s"
-                         % (p.dtype, tuple(p.shape)))
-    if not (acc.device == p.device == key_row.device):
-        raise ValueError("acc, p and key row must be on one device")
+    if cmux.check_step("step_overlap", acc, p, key_row, (MASK1, DECOMP))[0]:
+        raise ValueError("step_overlap takes the exact key alone")
     if acc.device.type == 'cpu':
         return step_overlap_plain(acc, p, key_row, offset=offset,
                                   log2_base=log2_base)
-    if acc.device.type != 'cuda':
-        raise ValueError("step_overlap runs on CUDA or CPU, not %s"
-                         % acc.device)
-    if not (acc.is_contiguous() and p.is_contiguous()
-            and key_row.is_contiguous()):
-        raise ValueError("step_overlap takes contiguous tensors")
-    if not 1 <= log2_base <= 16:
-        raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
-    rows = kr.launch_rows(key_row, False, rows, None, 1, "step_overlap")
-    from ..kernels import build
-    fn = build.entry("step_overlap")
-    out = torch.empty_like(acc)
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), rows.data_ptr(),
-              acc.shape[0], int(offset) & 0xFFFFFFFF, int(log2_base),
-              acc.device.index, stream)
-    build.check("step_overlap", code)
+    out = cmux.launch("step_overlap", acc, p, key_row, (), offset=offset,
+                      log2_base=log2_base)
     launches += 1
     return out
-

@@ -8,7 +8,8 @@ of the card's own step (K1 and K3, ``kernels/csrc/blind_rotate_body.cuh``),
 as K5's are (``ops/step_parts.py``), at the default shape (mask1, l) =
 (2, 2) in both key forms, as ``profile`` reads the engine mode.  The parts
 keep the JAX names; in the port's layout (``acc`` (B, 2, N) int32, ``p``
-(B,) int32 in [0, 2N), ``key_row`` one row of
+(B,) int32 in [0, 2N), ``key_row`` one step of the key in its device's
+form (``ops/key_rows.key_form``), for the plain version a row of
 ``ops/transform.bootstrap_key_transformed``, (4, 2, L, R) exact or (2, 4,
 2, L, R) rounded) each returns (B, P, N) int32 in coefficient order, P = 4
 for "+decomp_pack2" and 2 else:
@@ -30,7 +31,6 @@ import torch
 from ..numeric import wrap_i32
 from . import cmux
 from . import flat_engine as fe
-from . import key_rows as kr
 from . import step_parts as sp
 
 PARTS = ("noop (1 pass)", "rot j-rolls b0-4", "rot Y-rolls 1/2/4",
@@ -75,46 +75,20 @@ def step_profile_plain(name, acc, p, key_row, *, offset, log2_base):
                               log2_base=log2_base, rotate=True)
 
 
-def step_profile(name, acc, p, key_row, *, offset, log2_base, rows=None):
+def step_profile(name, acc, p, key_row, *, offset, log2_base):
     """K9: part ``name`` of the CMUX step, either key form.  A CUDA tensor
-    runs the kernel; a CPU tensor the plain version.  Returns a new
-    tensor.  ``rows``: the key row's prepared rows (``ops/key_rows``),
-    which the kernel reads: required on CUDA."""
+    runs the kernel on the key row's rows; a CPU tensor the plain version
+    on its int64 row (``ops/key_rows.key_form``).  Returns a new tensor."""
     global launches
     if name not in PARTS:
         raise ValueError("unknown part %r; the parts are %s" % (name, PARTS))
-    if cmux.check_acc(acc, "step_profile") != MASK1:
-        raise ValueError("step_profile takes mask1 = %d, got %d"
-                         % (MASK1, acc.shape[1]))
-    rounded = cmux.check_key(key_row, (), "step_profile", MASK1)
-    if key_row.shape[-4] != G:
-        raise ValueError("step_profile takes l = %d, got a key row of G = %d"
-                         % (DECOMP, key_row.shape[-4]))
-    if p.dtype != torch.int32 or p.shape != (acc.shape[0],):
-        raise ValueError("p must be int32 (B,), got %s %s"
-                         % (p.dtype, tuple(p.shape)))
-    if not (acc.device == p.device == key_row.device):
-        raise ValueError("acc, p and key row must be on one device")
+    rounded = cmux.check_step("step_profile", acc, p, key_row,
+                              (MASK1, DECOMP))[0]
     if acc.device.type == 'cpu':
         return step_profile_plain(name, acc, p, key_row, offset=offset,
                                   log2_base=log2_base)
-    if acc.device.type != 'cuda':
-        raise ValueError("step_profile runs on CUDA or CPU, not %s"
-                         % acc.device)
-    if not (acc.is_contiguous() and p.is_contiguous()
-            and key_row.is_contiguous()):
-        raise ValueError("step_profile takes contiguous tensors")
-    if not 1 <= log2_base <= 16:
-        raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
-    rows = kr.launch_rows(key_row, rounded, rows, None, 1, "step_profile")
-    from ..kernels import build
-    fn = build.entry("step_profile")
-    out = torch.empty((acc.shape[0], out_polys(name), N), dtype=torch.int32,
-                      device=acc.device)
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), rows.data_ptr(),
-              acc.shape[0], PARTS.index(name), int(offset) & 0xFFFFFFFF,
-              int(log2_base), int(rounded), acc.device.index, stream)
-    build.check("step_profile", code)
+    out = cmux.launch("step_profile", acc, p, key_row, (PARTS.index(name),),
+                      offset=offset, log2_base=log2_base, rounded=rounded,
+                      out_polys=out_polys(name))
     launches += 1
     return out

@@ -10,15 +10,14 @@ through shared memory).  Every schedule computes K1's step, which the
 plain version states in ``ops/flat_engine``'s stages.
 
 In the port's layout: ``acc`` (B, 2, N) int32, ``p`` (B,) int32 in
-[0, 2N), ``key_row`` (4, 2, L, R) int64 exact or (2, 4, 2, L, R) rounded
-(one row of ``ops/transform.bootstrap_key_transformed``).
+[0, 2N), ``key_row`` one step of the key in its device's form
+(``ops/key_rows.key_form``), for the plain version (4, 2, L, R) int64 exact
+or (2, 4, 2, L, R) rounded (one row of
+``ops/transform.bootstrap_key_transformed``).
 """
-
-import torch
 
 from . import cmux
 from . import flat_engine as fe
-from . import key_rows as kr
 from . import step_parts as sp
 
 # the JAX script's short names (tools/exp_round3.py:137-143); the index is
@@ -50,46 +49,21 @@ def step_schedule_plain(name, acc, p, key_row, *, offset, log2_base):
     return fe.n_from_q(out.reshape(bsz, MASK1, N))
 
 
-def step_schedule(name, acc, p, key_row, *, offset, log2_base, rows=None):
+def step_schedule(name, acc, p, key_row, *, offset, log2_base):
     """K10: one CMUX step in schedule ``name``.  A CUDA tensor runs the
-    kernel; a CPU tensor the plain version.  Returns a new tensor.
-    ``rows``: the key row's prepared rows (``ops/key_rows``), which the
-    kernel reads: required on CUDA."""
+    kernel on the key row's rows; a CPU tensor the plain version on its
+    int64 row (``ops/key_rows.key_form``).  Returns a new tensor."""
     global launches
     if name not in SCHEDULES:
         raise ValueError("unknown schedule %r; the schedules are %s"
                          % (name, SCHEDULES))
-    if cmux.check_acc(acc, "step_schedule") != MASK1:
-        raise ValueError("step_schedule takes mask1 = %d, got %d"
-                         % (MASK1, acc.shape[1]))
-    rounded = cmux.check_key(key_row, (), "step_schedule", MASK1)
-    if key_row.shape[-4] != G:
-        raise ValueError("step_schedule takes l = %d, got a key of G = %d"
-                         % (DECOMP, key_row.shape[-4]))
-    if p.dtype != torch.int32 or p.shape != (acc.shape[0],):
-        raise ValueError("p must be int32 (B,), got %s %s"
-                         % (p.dtype, tuple(p.shape)))
-    if not (acc.device == p.device == key_row.device):
-        raise ValueError("acc, p and key row must be on one device")
+    rounded = cmux.check_step("step_schedule", acc, p, key_row,
+                              (MASK1, DECOMP))[0]
     if acc.device.type == 'cpu':
         return step_schedule_plain(name, acc, p, key_row, offset=offset,
                                    log2_base=log2_base)
-    if acc.device.type != 'cuda':
-        raise ValueError("step_schedule runs on CUDA or CPU, not %s"
-                         % acc.device)
-    if not (acc.is_contiguous() and p.is_contiguous()
-            and key_row.is_contiguous()):
-        raise ValueError("step_schedule takes contiguous tensors")
-    if not 1 <= log2_base <= 16:
-        raise ValueError("log2_base must be in [1, 16], got %d" % log2_base)
-    rows = kr.launch_rows(key_row, rounded, rows, None, 1, "step_schedule")
-    from ..kernels import build
-    fn = build.entry("step_schedules")
-    out = torch.empty_like(acc)
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
-    code = fn(acc.data_ptr(), out.data_ptr(), p.data_ptr(), rows.data_ptr(),
-              acc.shape[0], SCHEDULES.index(name), int(offset) & 0xFFFFFFFF,
-              int(log2_base), int(rounded), acc.device.index, stream)
-    build.check("step_schedules", code)
+    out = cmux.launch("step_schedules", acc, p, key_row,
+                      (SCHEDULES.index(name),), offset=offset,
+                      log2_base=log2_base, rounded=rounded)
     launches += 1
     return out

@@ -19,14 +19,17 @@ without it.  Every variant computes K3's CMUX steps:
   it launches the kernel, as ``tools/exp_round4.py:661`` does.
 
 In the port's layout: ``acc`` (B, 2, N) int32, ``bara_t`` (n, B) int32 in
-[0, 2N), ``key`` (n, 4, 2, L, R) int64 exact or (n, 2, 4, 2, L, R) rounded.
+[0, 2N), ``key`` the rows engine's key in its device's form
+(``ops/key_rows.key_form``): for the plain version (n, 4, 2, L, R) int64
+exact or (n, 2, 4, 2, L, R) rounded.
 """
 
 import functools
 
+from . import blind_rotate as brc
+from . import cmux
 from . import flat_engine as fe
 from . import rotate_forms as rf
-from . import step_context as sc
 
 # the JAX script's short names (tools/exp_round4.py:1083-1091, in its
 # order); the index is K11's variant argument
@@ -68,24 +71,24 @@ def step_trick_plain(variant, acc, bara_t, key, start, chunk, *, offset,
 
 
 def step_trick(variant, acc, bara_t, key, start, chunk, *, offset,
-               log2_base, rows=None):
+               log2_base):
     """K11: steps [start, start + chunk) of ``variant``.  A CUDA tensor runs
-    the kernel (t8 and t8+t9 on ``even_powers(bara_t)``); a CPU tensor the
-    plain version.  Returns a new tensor.  ``rows``: the key's prepared
-    rows (``ops/key_rows``), which the kernel reads: required on CUDA."""
+    the kernel on the key's rows (t8 and t8+t9 on ``even_powers(bara_t)``);
+    a CPU tensor the plain version on the int64 key
+    (``ops/key_rows.key_form``).  Returns a new tensor."""
     global launches
     if variant not in VARIANTS:
         raise ValueError("unknown variant %r; the variants are %s"
                          % (variant, VARIANTS))
-    rounded, start, chunk = sc.check_chunk("step_tricks", acc, bara_t, key,
-                                           start, chunk)
+    rounded, _, _, start, chunk = brc.check_chunk(
+        "step_tricks", acc, bara_t, key, start, chunk, (rf.MASK1, rf.DECOMP))
     if acc.device.type == 'cpu':
         return step_trick_plain(variant, acc, bara_t, key, start, chunk,
                                 offset=offset, log2_base=log2_base)
     if variant in EVEN:
         bara_t = even_powers(bara_t)
-    out = sc.launch_chunk("step_tricks", VARIANTS.index(variant), acc, bara_t,
-                          key, start, chunk, rounded, offset=offset,
-                          log2_base=log2_base, rows=rows)
+    out = cmux.launch("step_tricks", acc, bara_t, key[start:start + chunk],
+                      (start, chunk, VARIANTS.index(variant)), offset=offset,
+                      log2_base=log2_base, rounded=rounded)
     launches += 1
     return out

@@ -1,9 +1,13 @@
 """The blind rotation's key limb rows (the row kernel's plain version,
 ``ops/key_rows``): byte for byte the rows that the host limb oracle gives
 under K1/K3's layout rule, in every kernel shape and both key forms;
-prepared once with the key and cached, and only for a CUDA key; required
-by every launch; and the CPU path of the chunked rotation unchanged by
-them."""
+prepared once with the key and cached in place of the int64 key, and only
+for a CUDA key; the one form a device that ``key_form`` reads; and the CPU
+path of the step and the chunked rotation unchanged by them, for any
+(mask1, l)."""
+
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -86,49 +90,58 @@ def _nand_twice(secret, cloud, rng, device):
 
 @pytest.mark.parametrize("transform_type", ["NTT", "FFT"])
 def test_device_prepares_rows_once(transform_type, monkeypatch):
-    """``BootstrapKey.device`` prepares the rows with the key, once a
-    device, and caches both; gate calls after it prepare none.  The
-    preparation is a CUDA-free stand-in for the row kernel, counted."""
-    calls = []
+    """``BootstrapKey.device`` prepares the key once a device and caches
+    the one form the preparation returns; the int64 key it was made from
+    is released.  The preparation is a CUDA-free stand-in for the row
+    kernel (the plain rows), counted."""
+    rounded = transform_type == "FFT"
+    calls, released = [], []
 
-    def prepare(key, rounded):
-        calls.append(key.device)
-        return kr.key_rows_plain(key, rounded)
+    def prepare(key, form):
+        calls.append((key.device, form))
+        weakref.finalize(key, released.append, key.dim())
+        return kr.key_rows_plain(key, form)
 
     monkeypatch.setattr(kr, "prepare", prepare)
     rng = nft.DeterministicRNG(5)
-    secret, cloud = nft.make_key_pair(rng, on_device=False, lwe_size=8,
-                                      transform_type=transform_type)
+    _, cloud = nft.make_key_pair(rng, on_device=False, lwe_size=8,
+                                 transform_type=transform_type)
     bk = cloud.bootstrap_key
-    key = bk.device("cpu")
-    rows = bk.rows("cpu")
-    assert bk.device("cpu") is key and bk.rows("cpu") is rows
-    assert calls == [torch.device("cpu")]
-    assert torch.equal(rows, kr.key_rows_plain(key, transform_type == "FFT"))
-    _nand_twice(secret, cloud, rng, "cpu")
-    assert len(calls) == 1
+    rows = bk.device("cpu")
+    assert bk.device("cpu") is rows and bk.device("cpu") is rows
+    assert calls == [(torch.device("cpu"), rounded)]
+    gc.collect()
+    assert released == [6 if rounded else 5]      # no int64 copy is kept
+    key = ttf.bootstrap_key_transformed(bk.bk_coeff, "cpu", transform_type)
+    assert torch.equal(rows, kr.key_rows_plain(key, rounded))
 
 
 @pytest.mark.parametrize("transform_type", ["NTT", "FFT"])
-def test_cpu_key_has_no_rows(transform_type):
-    """Off CUDA the key has no rows: the rotation runs the plain steps on
-    the int64 key, so neither key preparation nor the gates launch the
-    row kernel."""
+def test_cpu_key_has_no_rows(transform_type, monkeypatch):
+    """On the CPU the key is the int64 key: its preparation returns it as
+    it is, the rotation runs the plain steps on it, and neither key
+    preparation nor the gates launch the row kernel or prepare again."""
+    calls = []
+    real = kr.prepare
+    monkeypatch.setattr(kr, "prepare", lambda key, form: calls.append(form)
+                        or real(key, form))
     rng = nft.DeterministicRNG(6)
     secret, cloud = nft.make_key_pair(rng, on_device=False, lwe_size=8,
                                       transform_type=transform_type)
     kr.rows_prepared = 0
-    assert cloud.bootstrap_key.rows("cpu") is None
-    assert kr.prepare(cloud.bootstrap_key.device("cpu"),
-                      transform_type == "FFT") is None
+    bk = cloud.bootstrap_key
+    key = bk.device("cpu")
+    assert torch.equal(key, ttf.bootstrap_key_transformed(
+        bk.bk_coeff, "cpu", transform_type))
+    assert kr.key_form(key, (8,), "t") == (transform_type == "FFT", 2, 2)
     _nand_twice(secret, cloud, rng, "cpu")
-    assert kr.rows_prepared == 0
+    assert calls == [transform_type == "FFT"] and kr.rows_prepared == 0
 
 
 @pytest.mark.parametrize("transform_type", ["NTT", "FFT"])
 def test_chunk_cpu_path_unchanged(transform_type):
-    """On CPU tensors the chunked rotation is the plain steps, with the
-    prepared rows or without: no launch, no preparation."""
+    """On CPU tensors the chunked rotation is the plain steps on the int64
+    key: no launch, no preparation; the rows are not the CPU's form."""
     rounded = transform_type == "FFT"
     key, _ = _key(7, 2, 2, transform_type, steps=3)
     rng = np.random.RandomState(8)
@@ -136,29 +149,74 @@ def test_chunk_cpu_path_unchanged(transform_type):
                            .astype(np.int32))
     bara_t = torch.from_numpy(rng.randint(0, 2 * ttf.N, (3, 5))
                               .astype(np.int32))
-    rows = kr.key_rows_plain(key, rounded)
     want = acc
     for step in range(1, 3):
         want = cmux.cmux_step_plain(want, bara_t[step], key[step], **KW)
     counts = (brc.launches, cmux.launches, kr.rows_prepared)
     assert torch.equal(brc.blind_rotate_chunk(acc, bara_t, key, 1, 2, **KW),
                        want)
-    assert torch.equal(brc.blind_rotate_chunk(acc, bara_t, key, 1, 2,
-                                              rows=rows, **KW), want)
+    with pytest.raises(TypeError):
+        brc.blind_rotate_chunk(acc, bara_t, kr.key_rows_plain(key, rounded),
+                               1, 2, **KW)
     assert (brc.launches, cmux.launches, kr.rows_prepared) == counts
 
 
-def test_launch_rows():
-    """A launch reads the prepared rows of its own steps; no rows, or rows
-    of another shape, type or key, are refused."""
+def test_key_form():
+    """The one reader of the rows engine's key form: the int64 key on the
+    CPU, whole or a step's row, of any (mask1, l); and the rows, checked
+    here on the CPU by the reader's rows branch.  Every other tensor is
+    refused: no rows, rows of another shape, type, layout or key, a lanes
+    operand, and rows of a (mask1, l) that no kernel instantiates."""
     key, _ = _key(3, 2, 2, "NTT", steps=4)
+    rkey, _ = _key(4, 2, 3, "FFT", steps=4)
+    wide = torch.zeros((8, 2, ttf.L, ttf.R), dtype=torch.int64)
     rows = kr.key_rows(key, False)
-    assert torch.equal(rows, kr.key_rows_plain(key, False))
-    assert torch.equal(kr.launch_rows(key, False, rows, 1, 2, "t"), rows[1:3])
-    assert torch.equal(kr.launch_rows(key[2], False, rows[2], None, 1, "t"),
-                       rows[2])
-    for bad in (None, rows[1:], rows.to(torch.int16), rows[..., :4, :]):
-        with pytest.raises(ValueError):
-            kr.launch_rows(key, False, bad, 0, 1, "t")
+    lanes = torch.zeros((4, ttf.L, 256, 320), dtype=torch.int8)
+    assert kr.key_form(key, (4,), "t", 2) == (False, 2, 2)
+    assert kr.key_form(rkey[1], (), "t") == (True, 2, 3)
+    assert kr.key_form(wide, (), "t") == (False, 2, 4)
+    for bad, error in ((rows, TypeError), (key[1:], ValueError),
+                       (key[:, :3], ValueError), (lanes, TypeError)):
+        with pytest.raises(error):
+            kr.key_form(bad, (4,), "t", 2)
     with pytest.raises(ValueError):
-        kr.launch_rows(key[0], False, rows[0, :, :2], None, 1, "t")
+        kr.key_form(key.to("meta"), (4,), "t")
+
+    def read_rows(x, lead, mask1=None):
+        return kr._read_form(x, lead, "t", mask1, True)
+
+    assert read_rows(rows, (4,), 2) == (False, 2, 2)
+    assert read_rows(rows[2], (), 2) == (False, 2, 2)
+    assert read_rows(kr.key_rows(rkey, True)[1], ()) == (True, 2, 3)
+    with pytest.raises(ValueError, match=r"\(2, 4\)"):
+        read_rows(kr.key_rows(wide, False), ())
+    buf = torch.zeros(rows.numel() + 1, dtype=torch.int8)
+    for bad, error in ((key, TypeError), (rows.to(torch.int16), TypeError),
+                       (rows[1:], ValueError), (rows[..., :4, :], ValueError),
+                       (rows[0, :, :2], ValueError), (lanes, ValueError),
+                       (kr.key_rows(_key(5, 3, 2, "NTT", steps=4)[0], False),
+                        ValueError),
+                       (buf[1:].view(rows.shape), ValueError)):
+        with pytest.raises(error):
+            read_rows(bad, (4,), 2)
+
+
+@pytest.mark.parametrize("transform_type", ["NTT", "FFT"])
+def test_cpu_path_takes_any_pair(transform_type):
+    """On the CPU the step and the chunked rotation take a (mask1, l) that
+    no kernel instantiates, (2, 4) here, and run the plain steps."""
+    key, _ = _key(9, 2, 4, transform_type, steps=3)
+    rng = np.random.RandomState(10)
+    acc = torch.from_numpy(rng.randint(-2**31, 2**31, (3, 2, ttf.N))
+                           .astype(np.int32))
+    bara_t = torch.from_numpy(rng.randint(0, 2 * ttf.N, (3, 3))
+                              .astype(np.int32))
+    want = acc
+    for step in range(3):
+        want = cmux.cmux_step_plain(want, bara_t[step], key[step], **KW)
+    counts = (brc.launches, cmux.launches)
+    assert torch.equal(brc.blind_rotate_chunk(acc, bara_t, key, 0, 3, **KW),
+                       want)
+    assert torch.equal(cmux.cmux_step(acc, bara_t[0], key[0], **KW),
+                       cmux.cmux_step_plain(acc, bara_t[0], key[0], **KW))
+    assert (brc.launches, cmux.launches) == counts

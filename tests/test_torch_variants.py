@@ -30,7 +30,8 @@ from nufhe_tpu.params import NuFHEParameters
 
 import nufhe_tpu_torch as tnf
 from nufhe_tpu_torch.ops import cmux, flat_engine as tfe
-from nufhe_tpu_torch.ops import keyswitch as tks, lanes_step as k4
+from nufhe_tpu_torch.ops import key_rows as tkr, keyswitch as tks
+from nufhe_tpu_torch.ops import lanes_step as k4
 from nufhe_tpu_torch.ops import lwe as tlwe, transform as ttf
 
 LWE_SIZE = 4
@@ -166,21 +167,22 @@ def test_keyswitch_base8_matches_jax(in_size, l, out_size, bsz):
 
 def test_wrappers_take_the_variant_shapes_and_name_the_rest():
     """The shape checks read mask1 from the accumulator and G = mask1*l
-    from the key; a pair that no kernel instantiates raises, naming it."""
+    from the key; a pair that no kernel instantiates is the plain steps'
+    on the CPU, and its rows, a kernel's key, raise, naming it."""
     rng = np.random.RandomState(3)
     bk = rng.randint(-2**31, 2**31, (2, 3, 2, 3, 1024)).astype(np.int32)
     key = ttf.bootstrap_key_transformed(bk, "cpu", "NTT")
     assert key.shape == (2, 6, 3, 64, 32)
-    assert not cmux.check_key(key, (2,), "x", 3)
-    assert cmux.kernel_shape(key, 3, "x") == (3, 2)
+    assert tkr.key_form(key, (2,), "x", 3) == (False, 3, 2)
     with pytest.raises(ValueError):            # O = 3, not the acc's mask1
-        cmux.check_key(key, (2,), "x", 2)
-    with pytest.raises(ValueError, match=r"\(3, 4\)"):
-        cmux.kernel_shape(torch.zeros((12, 3, 64, 32), dtype=torch.int64), 3,
-                          "x")
+        tkr.key_form(key, (2,), "x", 2)
+    wide = torch.zeros((12, 3, 64, 32), dtype=torch.int64)
+    assert tkr.key_form(wide, (), "x", 3) == (False, 3, 4)   # plain steps
+    with pytest.raises(ValueError, match=r"\(3, 4\)"):    # no kernel
+        tkr._read_form(tkr.key_rows_plain(wide, False), (), "x", 3, True)
     with pytest.raises(ValueError):            # G = 5 is not a multiple of 2
-        cmux.check_key(torch.zeros((5, 2, 64, 32), dtype=torch.int64), (),
-                       "x", 2)
+        tkr.key_form(torch.zeros((5, 2, 64, 32), dtype=torch.int64), (),
+                     "x", 2)
     assert cmux.check_acc(torch.zeros((1, 3, 1024), dtype=torch.int32),
                           "x") == 3
     for q, form in ((480, (3, 2, False)), (384, (3, 2, True))):

@@ -41,7 +41,7 @@ def run(batch, device="cuda", reps=20):
     """Both schedules at ``batch``: ms a step by schedule, and whether the
     split equals the serial step on the first samples."""
     acc, powers, row, kw = _setup(batch, device, exact=True)
-    kw = dict(kw, rows=kr.key_rows(row, False))   # prepared with the key
+    row = kr.prepare(row, False)                 # the device's form
     n = min(CHECK, batch)
     small, p_small = acc[:n].contiguous(), powers[:n].contiguous()
     exact = torch.equal(SCHEDULES["serial"](small, p_small, row, **kw),

@@ -45,7 +45,7 @@ def run(batch, device="cuda", exact=None, reps=20):
     if exact is None:
         exact = exact_engine()
     acc, powers, row, kw = _setup(batch, device, exact=exact)
-    kw = dict(kw, rows=kr.key_rows(row, not exact))   # prepared with the key
+    row = kr.prepare(row, not exact)             # the device's form
     print("mode=%s batch=%d" % ("exact" if exact else "rounded-key", batch),
           flush=True)
     ref = cmux.cmux_step(acc, powers, row, **kw)

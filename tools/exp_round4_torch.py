@@ -63,15 +63,15 @@ def profile(batch, device="cuda", exact=None, reps=20):
     if exact is None:
         exact = exact_engine()
     acc, powers, row, kw = _setup(batch, device, exact=exact)
-    rows = kr.key_rows(row, not exact)           # prepared with the key
+    row = kr.prepare(row, not exact)             # the device's form
     print("mode=%s batch=%d Q=%d" % (_mode(exact), batch,
                                      (5 if exact else 4) * 2 * tf.R),
           flush=True)
     out = {}
     for name in spf.PARTS:
         out[name] = time_ms(
-            lambda: spf.step_profile(name, acc, powers, row, rows=rows,
-                                     **kw), reps, device)
+            lambda: spf.step_profile(name, acc, powers, row, **kw), reps,
+            device)
         print("%-24s: %9.4f %s" % (name, out[name], _where(device)),
               flush=True)
     return out
@@ -95,13 +95,13 @@ def context(batch, device="cuda", n_steps=100, exact=None, reps=3):
     if exact is None:
         exact = exact_engine()
     acc, bara_t, key, kw = context_inputs(batch, device, n_steps, exact)
-    rows = kr.key_rows(key, not exact)           # prepared with the key
+    key = kr.prepare(key, not exact)             # the device's form
     print("mode=%s batch=%d n_steps=%d" % (_mode(exact), batch, n_steps),
           flush=True)
     out = {}
     for name in sc.VARIANTS:
         t = time_ms(lambda: sc.step_context(name, acc, bara_t, key, 0,
-                                            n_steps, rows=rows, **kw),
+                                            n_steps, **kw),
                     reps, device)
         out[name] = t / n_steps
         line = "%-16s: %9.4f %s/step" % (name, out[name], _where(device))
@@ -130,7 +130,7 @@ def against_k3(batch, device, n_steps, exact, reps, names, labels, run,
     if exact is None:
         exact = exact_engine()
     acc, bara_t, key, kw = context_inputs(batch, device, n_steps, exact)
-    kw = dict(kw, rows=kr.key_rows(key, not exact))   # prepared with the key
+    key = kr.prepare(key, not exact)             # the device's form
     print("mode=%s batch=%d n_steps=%d" % (_mode(exact), batch, n_steps),
           flush=True)
     ref = {False: brc.blind_rotate_chunk(acc, bara_t, key, 0, n_steps, **kw)}

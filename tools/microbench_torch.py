@@ -83,8 +83,8 @@ def _setup(batch, device, exact=None):
 def bench_step(batch, device="cuda", reps=20):
     """K1 at ``batch``: ms a launch and ms/bit of a 500-step rotation."""
     acc, powers, row, kw = _setup(batch, device)
-    rows = kr.key_rows(row, row.dim() == 5)      # prepared with the key
-    ms = time_ms(lambda: cmux.cmux_step(acc, powers, row, rows=rows, **kw),
+    row = kr.prepare(row, row.dim() == 5)        # the device's form
+    ms = time_ms(lambda: cmux.cmux_step(acc, powers, row, **kw),
                  reps, device)
     ms_bit = ms * 500 / batch
     mode = "exact" if exact_engine() else "rounded-key"
@@ -97,11 +97,11 @@ def bench_step(batch, device="cuda", reps=20):
 def bench_parts(batch, device="cuda", reps=20):
     """K5: each stage part of the exact step at ``batch``, ms a launch."""
     acc, powers, row, kw = _setup(batch, device, exact=True)
-    rows = kr.key_rows(row, False)               # prepared with the key
+    row = kr.prepare(row, False)                 # the device's form
     out = {}
     for name in sp.PARTS:
         out[name] = time_ms(
-            lambda: sp.step_part(name, acc, powers, row, rows=rows, **kw),
+            lambda: sp.step_part(name, acc, powers, row, **kw),
             reps, device)
         print("%-16s: %9.4f %s" % (name, out[name], _where(device)),
               flush=True)
@@ -147,7 +147,7 @@ def bench_rotation(batch, device="cuda", n_steps=None, chunks=None,
         exact = exact_engine()
     acc, _, row, kw = _setup(batch, device, exact=exact)
     key = row.expand((n_steps,) + tuple(row.shape)).contiguous()
-    rows = kr.key_rows(key, not exact)           # prepared with the key
+    key = kr.prepare(key, not exact)             # the device's form
     rs = np.random.RandomState(1)
     bara_t = torch.from_numpy(rs.randint(0, 2 * tf.N, (n_steps, batch)).astype(
         np.int32)).to(device)
@@ -155,14 +155,13 @@ def bench_rotation(batch, device="cuda", n_steps=None, chunks=None,
     def per_step():
         a = acc
         for i in range(n_steps):
-            a = cmux.cmux_step(a, bara_t[i], key[i], rows=rows[i], **kw)
+            a = cmux.cmux_step(a, bara_t[i], key[i], **kw)
         return a
 
     def chunked(chunk):
         a = acc
         for start in range(0, n_steps, chunk):
-            a = brc.blind_rotate_chunk(a, bara_t, key, start, chunk,
-                                       rows=rows, **kw)
+            a = brc.blind_rotate_chunk(a, bara_t, key, start, chunk, **kw)
         return a
 
     print("engine: %s steps=%d" % ("exact" if exact else "rounded-key",
