@@ -2,9 +2,12 @@
 """Drive nufhe_tpu_torch on one CUDA card and check every kernel it runs.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --shapes [TREE]    # K3 at the kS = 2 shapes alone
 
 Phases, each of which raises on failure (the script then exits non-zero
-and prints no result line):
+and prints no result line; ``--shapes`` runs ``k3_shape_times`` alone,
+on ``TREE``'s ``nufhe_tpu_torch`` where one is given, and prints one
+``k3_shapes`` JSON line):
 
 1. the card's name and power limit (``nvidia-smi``) and the versions of
    Python, PyTorch and CUDA;
@@ -25,10 +28,12 @@ and prints no result line):
    and 101, each against its plain version, K3 against its chunk of K1
    launches and K4's steps against as many K1 launches; K3 and K1 (one MAC
    form, both digit limbs on the mma's N) in all three shapes and both key
-   forms at batches 1, 3, 4, 5, 64, 128, 2^14 and 2^14 + 4, K3 at chunks
-   1, 7 and 50 (1 and 7 at the two large batches), against their plain
-   versions, with the MAC's ``mma.sync`` a slot and the share of their N
-   columns that carry work (``mac_issue``); K5 (the exact
+   forms at batches 1, 3, 4, 5, 64, 65, 67, 128, 2^14 and 2^14 + 4, K3 at
+   chunks 1, 7 and 50 (1 and 7 at the two large batches), against their
+   plain versions on every row, with the MAC's ``mma.sync`` a slot and the
+   share of their N columns that carry work (``mac_issue``), K3's clusters
+   the card holds at once, and every launch at (3, 2) and (2, 3) counted
+   as a pair of blocks (``paired_launches``), none at (2, 2); K5 (the exact
    step's stage parts, ``ops/step_parts``): every part against its plain
    version at batch 256 and 101, its FULL step also against K1; at the
    same batches K6 (``ops/step_context``, K3 with one stage of each step
@@ -114,7 +119,7 @@ and prints no result line):
    against the plain steps on 64 sampled rows, one launch and its steps
    each by the counters (``ops/blind_rotate.steps``), and its NAND on the
    4096 inputs, keys made on the card, both engines: 13 K3 launches of
-   630 steps in all, no K1, 1 K2;
+   630 steps in all, each a pair of blocks, no K1, 1 K2;
 6. containers: each cloud key (both engines) through ``dumps()`` and
    ``NuFHECloudKey.loads`` (format 4: the one-sided limbs only), with its
    bytes and its seconds of load and of each part of the key preparation
@@ -164,7 +169,8 @@ and prints no result line):
    equals there too), a PyTorch library call where one computes the same
    function, and its bound (K3's with its MAC's ``mma.sync`` a slot and
    the share of their N columns that carry work); K4's three grids timed
-   apart;
+   apart; K3 at (2, 3) and (3, 2), 'NTT', a chunk of 50 at 2^14, ms a
+   launch beside its bound (``k3_shape_times``);
 11. ``step_parts``: ``tools/microbench_torch.py parts`` at 2^14 with the
    launch counts set to 0 just before it and read just after (K5's
    launches in the ``kernels`` line), then every part on the same inputs
@@ -202,7 +208,8 @@ and prints no result line):
    K3 + 1 K2; then ``bench_scaling_torch.py --devices 1`` (one NCCL rank,
    500 K4 + 1 K2 a call, its output bit-equal to ``bootstrap_device``);
    one ``bench_ports`` JSON line;
-15. a ``kernels`` JSON line, then the ``nvidia-smi`` line, then the result
+15. a ``kernels`` JSON line (K3 at (2, 3) and (3, 2) as entries of their
+   own after the kernels), then the ``nvidia-smi`` line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The bound of a kernel is the larger of its bytes (each input read once,
@@ -274,8 +281,11 @@ EXAMPLES = ("gate_nand_torch.py", "gate_nand_low_level_torch.py",
 VARIANT_SHAPES = ((3, 2), (2, 3))
 # K3's and K1's batches against their plain versions in every shape and key
 # form: one sample, ragged and whole blocks of 4 and 2 samples, small
-# calls, the gate's 2^14 and 2^14 + 4 (a ragged last block of 4 samples)
-K3_BATCHES = (1, 3, 4, 5, 64, 128, 1 << 14, (1 << 14) + 4)
+# calls (at kS = 2, 65 and 67: an odd and an even count of blocks, each
+# with a partial last block, so 65 rounds the pairs' grid up by a block of
+# no sample), the gate's 2^14 and 2^14 + 4 (a ragged last block of 4
+# samples)
+K3_BATCHES = (1, 3, 4, 5, 64, 65, 67, 128, 1 << 14, (1 << 14) + 4)
 K3_CHUNKS = (1, 7, 50)
 # the chunks at the two large batches (50 steps of the plain version there
 # take tens of seconds; the timing phase holds 2^14 x 50 at (2, 2))
@@ -290,6 +300,11 @@ VARIANTS = (dict(tlwe_mask_size=2), dict(bs_decomp_length=3),
 # and k = 1 as the defaults): 12 chunks of 50 and a tail of 30
 TFHE_LIB = dict(lwe_size=630, bs_decomp_length=3, bs_log2_base=7)
 TFHE_ROWS = 64             # K3's sampled rows against the plain steps at 2^14
+# K3 timed at its kS = 2 shapes beside the default one ('NTT', a chunk of
+# CHUNK steps at 2^14): (2, 3) at the TFHE library's base 2^7, (3, 2) at
+# tlwe_mask_size=2; each a ``blind_rotate_chunk (mask1, l)`` entry of the
+# ``kernels`` line
+K3_SHAPE_TIMES = (((2, 3), TFHE_LIB), ((3, 2), dict(tlwe_mask_size=2)))
 INT_BATCH = 1024           # integers of the smaller integer circuits
 DIV_BATCH = 256            # integers of the divider
 CROSSOVER_BATCHES = (1, 16, 128, 1024)
@@ -344,11 +359,12 @@ def counters():
 
 
 def reset_counts():
-    from nufhe_tpu_torch.ops import blind_rotate, key_rows, lanes_step
+    from nufhe_tpu_torch.ops import blind_rotate, cmux, key_rows, lanes_step
     for mod in counters().values():
         mod.launches = 0
     lanes_step.collectives = 0
     blind_rotate.steps = 0
+    blind_rotate.paired_launches = cmux.paired_launches = 0
     key_rows.rows_prepared = 0
 
 
@@ -671,14 +687,32 @@ def block_samples(mask1, decomp_length):
     return x if (mask1, decomp_length) == (a, b) else y
 
 
+def pair_blocks(mask1, decomp_length):
+    """Blocks a cluster of K1 and K3 (``Shape::kPair`` in
+    ``blind_rotate_body.cuh``, which pairs the blocks of kS = 2 samples),
+    read from the source as :func:`block_samples` reads kS; on the card
+    the launcher's own answer is ``cmux.cluster_size``."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "nufhe_tpu_torch", "kernels", "csrc",
+                        "blind_rotate_body.cuh")
+    with open(path) as f:
+        m = re.search(r"int kPair = kS == (\d+) \? (\d+) : 1;", f.read())
+    if m is None:
+        raise RuntimeError("no Shape::kPair of the form kS == a ? b : 1 in "
+                           + path)
+    k_s, pair = map(int, m.groups())
+    return pair if block_samples(mask1, decomp_length) == k_s else 1
+
+
 def mac_issue(mask1, decomp_length, rounded):
     """How K1's and K3's MAC (``mac_slot``) issues on the tensor cores: the
     ``mma.sync`` m16n8k32 of one slot and the share of their N columns that
-    carry work.  Both int8 limbs of the block's kS digit samples lie on the
-    mma's N (2kS of its 8 columns), and each key limb row (6 exact: vlo,
-    vhi_0..3, 4*vlo; 4 rounded) feeds one mma a digit polynomial, output
-    polynomial and M tile; a row's product with a digit limb carries work
-    where ``ops/transform._mac_limb_table`` pairs them.
+    carry work.  Both int8 limbs of the kS digit samples of the block, or
+    of the cluster's pair of blocks (:func:`pair_blocks`), lie on the
+    mma's N (2kS of its 8 columns, or 4kS), and each key limb row (6
+    exact: vlo, vhi_0..3, 4*vlo; 4 rounded) feeds one mma a digit
+    polynomial, output polynomial and M tile; a row's product with a digit
+    limb carries work where ``ops/transform._mac_limb_table`` pairs them.
 
     :returns: (``mma.sync`` a slot, :class:`fractions.Fraction` of the
         columns that carry work).
@@ -692,16 +726,21 @@ def mac_issue(mask1, decomp_length, rounded):
     # the table's pairs that meet a key limb, not its zero (index key_limbs)
     pairs = int((tf._mac_limb_table(not rounded) != key_limbs).sum())
     mma = 2 * mask1 * (mask1 * decomp_length) * rows
-    return mma, Fraction(pairs * block_samples(mask1, decomp_length),
-                         rows * 8)
+    on_n = block_samples(mask1, decomp_length) * pair_blocks(mask1,
+                                                            decomp_length)
+    return mma, Fraction(pairs * on_n, rows * 8)
 
 
 def check_k3_batches(nft, dev, rng, results):
     """K3 and K1, whose MAC has one form (both digit limbs on the mma's N,
     :func:`mac_issue`), against their plain versions in every
-    kernel shape and both key forms: K1 at each of ``K3_BATCHES``, K3 at
-    each of those batches and chunks (``K3_LARGE_CHUNKS`` above 128), from
-    step 1 of a random key."""
+    kernel shape and both key forms, on every row: K1 at each of
+    ``K3_BATCHES``, K3 at each of those batches and chunks
+    (``K3_LARGE_CHUNKS`` above 128), from step 1 of a random key.  Every
+    launch at a kS = 2 shape runs as a pair of blocks (``paired_launches``
+    equal to the launches, and ``cmux.cluster_size`` 2), none at (2, 2);
+    the clusters of K3 the card holds at once
+    (``cudaOccupancyMaxActiveClusters``) are printed for each shape."""
     from nufhe_tpu_torch.ops import blind_rotate as brc, cmux
     steps, start = max(K3_CHUNKS) + 1, 1
     for mask1, decomp_length in ((2, 2),) + VARIANT_SHAPES:
@@ -709,6 +748,8 @@ def check_k3_batches(nft, dev, rng, results):
                                  bs_decomp_length=decomp_length).tgsw_params
         kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
         shape = "(mask1, l) = (%d, %d)" % (mask1, decomp_length)
+        torch.cuda.synchronize()
+        reset_counts()
         for mode in ("NTT", "FFT"):
             key = random_key(rng, steps, tp, dev, mode, mask1)
             rows = rows_of(key, mode)
@@ -734,7 +775,36 @@ def check_k3_batches(nft, dev, rng, results):
                 del acc, bara_t, got, want
             mma, share = mac_issue(mask1, decomp_length, mode == "FFT")
             print("K1/K3 %s %s MAC: %d mma.sync a slot, %s of their N "
-                  "columns carry work" % (shape, mode, mma, share))
+                  "columns carry work; %d clusters of %d blocks at once"
+                  % (shape, mode, mma, share,
+                     k3_clusters(mask1, decomp_length, mode == "FFT", dev),
+                     cmux.cluster_size("blind_rotate_chunk", mask1,
+                                       decomp_length)))
+        pair = cmux.cluster_size("blind_rotate_chunk", mask1, decomp_length)
+        counted = dict(k1=cmux.launches, k1_paired=cmux.paired_launches,
+                       k3=brc.launches, k3_paired=brc.paired_launches)
+        print("K1/K3 %s launches: %s" % (shape, json.dumps(counted)))
+        if pair != pair_blocks(mask1, decomp_length) \
+                or cmux.cluster_size("cmux_step", mask1, decomp_length) \
+                != pair or not counted["k1"] or not counted["k3"] \
+                or counted["k1_paired"] != (counted["k1"] if pair > 1 else 0) \
+                or counted["k3_paired"] != (counted["k3"] if pair > 1 else 0):
+            raise AssertionError("K1/K3 %s: clusters of %d blocks, launches %s"
+                                 % (shape, pair, counted))
+
+
+def k3_clusters(mask1, decomp_length, rounded, dev):
+    """The clusters of K3 at (mask1, l) that the card holds at once
+    (``cudaOccupancyMaxActiveClusters``, through the kernel's library)."""
+    import ctypes
+    from nufhe_tpu_torch.kernels import build
+    fn = build.function("blind_rotate_chunk", "blind_rotate_chunk_clusters",
+                        [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    out = ctypes.c_int(0)
+    build.check("blind_rotate_chunk_clusters",
+                fn(mask1, decomp_length, int(rounded), dev.index or 0,
+                   ctypes.addressof(out)))
+    return out.value
 
 
 def check_variant_shape(nft, dev, rng, results, mask1, decomp_length):
@@ -1397,7 +1467,8 @@ def tfhe_lib_params(nft, dev, rng, results):
     ``VirtualMachine`` on 4096 pairs, keys made on the card, both engines:
     13 K3 launches (12 chunks and the tail) of 630 steps, no K1 and one K2,
     decrypting to the truth table and equal to the plain CPU gate on 8
-    inputs.  Prints one ``tfhe_lib_params`` JSON line."""
+    inputs, every K3 launch a pair of blocks (``paired_launches`` 13).
+    Prints one ``tfhe_lib_params`` JSON line."""
     from nufhe_tpu_torch.ops import blind_rotate as brc, keyswitch as ks
     n = TFHE_LIB["lwe_size"]
     tail = n % CHUNK
@@ -1458,14 +1529,70 @@ def tfhe_lib_params(nft, dev, rng, results):
         out, counts = run_gate(nft, label, secret,
                                nft.VirtualMachine(c, device=dev), "gate_nand",
                                (cx, cy), ~(x & y), expect)
-        if brc.steps != n:
-            raise AssertionError("%s: K3 ran %d steps, not %d"
-                                 % (label, brc.steps, n))
+        if brc.steps != n or brc.paired_launches != expect[
+                "blind_rotate_chunk"]:
+            raise AssertionError("%s: K3 ran %d steps, not %d, in %d paired "
+                                 "launches" % (label, brc.steps, n,
+                                               brc.paired_launches))
         line["gates"].append({"mode": mode, "k3": counts["blind_rotate_chunk"],
-                              "steps": brc.steps, "k1": counts["cmux_step"],
+                              "steps": brc.steps,
+                              "k3_paired": brc.paired_launches,
+                              "k1": counts["cmux_step"],
                               "k2": counts["keyswitch"]})
         same_on_cpu(nft, label, c, "gate_nand", (cx, cy), out)
     print(json.dumps({"tfhe_lib_params": line}))
+
+
+def k3_shape_times(nft, dev, rng, results):
+    """K3 at each of ``K3_SHAPE_TIMES``, 'NTT', batch 2^14: one launch of
+    ``CHUNK`` steps from step 0 of a random key, against the plain steps on
+    ``TFHE_ROWS`` sampled rows, then its ms a launch by CUDA events beside
+    its bound (the int8 MAC's operations, 2 * 64 * 64G * Q a sample and
+    step, or the accumulators, rotation amounts and key rows once), and
+    K1's ms a launch (one step of the same key, ``k1_ms``); adds a
+    ``blind_rotate_chunk (mask1, l)`` entry to ``results`` for each.  Reads
+    nothing that a checkout without the pair lacks, so that
+    ``chip_smoke.py --shapes TREE`` times another tree's K3 the same way."""
+    from nufhe_tpu_torch.ops import blind_rotate as brc, cmux
+    b = TIMING_BATCH
+    sample = torch.from_numpy(np.sort(rng.choice(
+        b, TFHE_ROWS, replace=False))).to(dev)
+    for (mask1, decomp_length), params in K3_SHAPE_TIMES:
+        name = "blind_rotate_chunk (%d, %d)" % (mask1, decomp_length)
+        tp = nft.NuFHEParameters(**params).tgsw_params
+        kw = dict(offset=int(tp.offset), log2_base=tp.bs_log2_base)
+        key = random_key(rng, CHUNK, tp, dev, "NTT", mask1)
+        rows = rows_of(key, "NTT")
+        acc = random_acc(rng, b, dev, mask1)
+        bara_t = random_powers(rng, (CHUNK, b), dev)
+        got = brc.blind_rotate_chunk(acc, bara_t, rows, 0, CHUNK, **kw)
+        want = brc.blind_rotate_chunk_plain(
+            acc[sample], bara_t[:, sample].contiguous(), key, 0, CHUNK, **kw)
+        results[name] = dict(
+            name=name, route="cuda",
+            source="nufhe_tpu_torch/kernels/csrc/blind_rotate_chunk.cu",
+            replaces="nufhe_tpu/ops/pallas/blind_rotate.py:83")
+        record_err(results, name, "K3 %s NTT vs plain, batch %d (%d sampled "
+                   "rows), chunk %d" % (name, b, TFHE_ROWS, CHUNK),
+                   max_abs_err(got[sample], want))
+        del got, want
+        ms = cuda_ms(lambda: brc.blind_rotate_chunk(acc, bara_t, rows, 0,
+                                                    CHUNK, **kw), 5)
+        g_size, q_size = mask1 * decomp_length, 5 * 32 * mask1
+        n_ops = 2 * b * CHUNK * 64 * (64 * g_size) * q_size
+        n_bytes = 2 * acc.numel() * 4 + bara_t.numel() * 4 + rows.numel()
+        bound, by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
+        cmux.cmux_step(acc, bara_t[0], rows[0], **kw)     # K1 built, warm
+        k1_ms = cuda_ms(lambda: cmux.cmux_step(acc, bara_t[0], rows[0],
+                                               **kw), 20)
+        print("K3 %s NTT batch %d chunk %d: %.4f ms/launch (%.4f a step), "
+              "bound %.4f ms (%s; int8 MAC), %.2f%% of it; K1 %.4f ms/launch"
+              % (name, b, CHUNK, ms, ms / CHUNK, bound, by,
+                 100 * bound / ms, k1_ms))
+        results[name].update(launches=None, ms=ms, plain_ms=None,
+                             bound_ms=bound, bound_by=by, library_ms=None,
+                             k1_ms=k1_ms)
+        del key, rows, acc, bara_t
 
 
 def gate_ms_bit(nft, secret, vm, gate, args, want):
@@ -2734,13 +2861,16 @@ def build_kernels():
                 print("  %s: %s" % (name, line.strip()))
 
 
-def main():
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     sys.path.append(os.path.join(root, "tools"))
+    shapes = argv[:1] == ["--shapes"]
+    if shapes and len(argv) > 1:        # another tree's package first
+        sys.path.insert(0, os.path.abspath(argv[1]))
     import nufhe_tpu_torch as nft
     from bench_torch import nvidia_smi_line
 
@@ -2752,6 +2882,13 @@ def main():
                                             torch.version.cuda))
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(SEED)
+    if shapes:
+        results = {}
+        k3_shape_times(nft, dev, rng, results)
+        print(json.dumps({"k3_shapes": list(results.values()),
+                          "package": os.path.dirname(nft.__file__),
+                          "card": smi}))
+        return 0
     # the oracle's n=500 bootstraps (host numpy) overlap the card phases
     pool = multiprocessing.get_context("spawn").Pool(1)
     try:
@@ -2852,6 +2989,7 @@ def smoke(nft, smi, dev, rng, oracle_job):
             raise AssertionError("kernel %s was not launched on its path" % name)
         results[name]["launches"] = launches[name]
     timing(nft, dev, rng, secret, cloud, cloud_fft, vms, results)
+    k3_shape_times(nft, dev, rng, results)
     import microbench_torch as microbench
     step_parts_timing(dev, results, microbench, smi)
     microbench_phase(dev, microbench, smi)
@@ -2862,9 +3000,11 @@ def smoke(nft, smi, dev, rng, oracle_job):
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    shape_lines = [name for name in results if name not in LINE_KERNELS]
     print(json.dumps({"kernels": [
         {k: results[name][k] for k in keys + ("forms",)
-         if k in results[name]} for name in LINE_KERNELS]}))
+         if k in results[name]} for name in LINE_KERNELS + tuple(
+             shape_lines)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2873,4 +3013,4 @@ def smoke(nft, smi, dev, rng, oracle_job):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

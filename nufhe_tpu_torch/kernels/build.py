@@ -70,6 +70,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_libraries = {}
 _loaded = {}
 # wall seconds this process spent waiting on nvcc (0 when every library it
 # loaded was already in _build/)
@@ -145,14 +146,12 @@ def build_log(name):
     return path.read_text() if path.exists() else ""
 
 
-def entry(name):
-    """The C entry point of kernel ``name``, building it first if needed;
-    the first load runs inside the span ``nufhe.kernels.load``."""
+def _library(name):
+    """Kernel ``name``'s library, built first if needed and loaded once
+    (inside the span ``nufhe.kernels.load``); the caller holds ``_lock``."""
     global nvcc_seconds
-    with _lock:
-        fn = _loaded.get(name)
-        if fn is not None:
-            return fn
+    lib = _libraries.get(name)
+    if lib is None:
         with annotate("nufhe.kernels.load"):
             _, lib_path = _library_path(name)
             if not lib_path.exists():
@@ -161,13 +160,28 @@ def entry(name):
                 if job is not None:
                     _finish(name, job)
                     nvcc_seconds += time.time() - t0
-            lib = ctypes.CDLL(str(lib_path))
+            lib = _libraries[name] = ctypes.CDLL(str(lib_path))
+    return lib
+
+
+def function(name, symbol, argtypes):
+    """The C function ``symbol`` of kernel ``name``'s library, returning a C
+    int, building and loading the library first if needed."""
+    with _lock:
+        fn = getattr(_library(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def entry(name):
+    """The C entry point of kernel ``name`` (:func:`function` of its
+    ``KERNELS`` symbol)."""
+    fn = _loaded.get(name)
+    if fn is None:
         _, symbol, argtypes = KERNELS[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = fn
-        return fn
+        fn = _loaded[name] = function(name, symbol, argtypes)
+    return fn
 
 
 def check(name, code):

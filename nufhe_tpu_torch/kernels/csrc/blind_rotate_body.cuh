@@ -45,13 +45,14 @@
 //      (X^p - 1) * acc and the gadget digit straight into registers, the
 //      exact forward Nussbaumer DIT there (rotate_common.cuh), and the split
 //      into int8 limbs a0, a1, stored by MAC slot p (frequency rev6(p)):
-//      per slot, [g][limb][sample][32];
+//      per slot, [g][limb][sample][32] (the pair: pair_limb_word);
 //   4. the MAC: per slot, the (Q x 64G) . (64G x kS) product, Q = 5*32*Mask1
 //      exact (groups B, A0..A3) or 4*32*Mask1 rounded (A0..A3), by mma.sync
 //      m16n8k32 s8 x s8 -> s32 with both int8 limbs of the kS samples'
-//      digits on the mma's N (2kS of its 8 columns: all of them at (2, 2),
-//      half at kS = 2); a warp owns a slot.  The A operand is the key: per
-//      (g, o, limb) one 64-byte row of the two-sided int8 limbs of
+//      digits on the mma's N (2kS of its 8 columns: all of them at (2, 2);
+//      at kS = 2 the pair's 4 samples, below); a warp owns a slot.  The A
+//      operand is the key: per (g, o, limb) one 64-byte row of the
+//      two-sided int8 limbs of
 //      ops/transform.key_limbs_host, side 0 then side 1, reversed: the
 //      Toeplitz operand's entry (k, u) is byte 31 - k + u of it, so a
 //      fragment's 4 consecutive K bytes are one unaligned word of the row.
@@ -85,6 +86,31 @@
 // 5-6 (2 * kS * Mask1 exact, half of it rounded) are at most the block's
 // warps; a warp without a role waits at the barriers.
 //
+// The pair (Shape::kPair = 2: the kS = 2 shapes, (3, 2) and (2, 3), K1 and
+// K3 alone): the launch runs clusters of two blocks on neighbouring SMs
+// (cudaLaunchKernelEx, the grid rounded up to an even count; a block past
+// the batch holds zeros and joins every barrier), and the two share the MAC
+// over distributed shared memory.  Block rank r runs the MAC of slots
+// [32r, 32r + 32) (12 warps: 3 slots for 8 of them, 2 for the rest, where
+// unpaired each ran 5 or 6 of 64) and copies only those slots' key rows.
+// Its warp builds a key row's A fragments as above (4 loads, 6 shifts, 2
+// mma) and feeds them to both blocks' samples: mma column 2n + i is limb i
+// of pair sample n, sample n % 2 of block n / 2, whose B fragments come from
+// that block's limbs of the slot (mapa, ld.shared::cluster), so N is full.
+// The limbs lie in the pair's own order in a slot's region
+// (pair_limb_word: a thread's 2G B-fragment words together, three 16-byte
+// loads at G = 6, where the [g][limb][sample][32] order took 2G 4-byte
+// loads), and the thread of pair sample n stores its 4 lo and 4 hi channel
+// words (k = 4gid..4gid+3) as one 16-byte store each into that block's
+// shared memory (st.shared::cluster), hi still over the slot's consumed
+// limbs, which only the slot's owner warp, in either block, reads.
+// The barriers after phases 1-3 and after the MAC are cluster barriers
+// (barrier.cluster arrive.release / wait.acquire: the peer's limbs are
+// written before the MAC reads them, and every channel word, local or
+// remote, before the inverse reads it); the one inside the inverse and the
+// one that ends the step stay block barriers, and a last cluster barrier
+// keeps each block's shared memory until its peer is done.
+//
 // Shared memory a sample: the accumulator (4 KB a polynomial: 4*Mask1 KB),
 // the lo channel (8*Mask1 KB) and the limbs / hi channel (64 slots x
 // max(64G, 128*Mask1) bytes); a warp's key rows take G*Mask1*6*64 bytes
@@ -109,13 +135,16 @@
 // 2), 131,072 rounded, 294,912 at (2, 3) exact; 1.5x, 0.5x and 1.5x the
 // int64 key they are prepared from).  L2 traffic: one step's key rows a
 // block and step, 2^14 / 4 x 196,608 B = 0.81 GB a step exact at (2, 2)
-// (0.54 GB rounded; 2^14 / 2 x 294,912 B = 2.4 GB at (2, 3)).  Issued:
-// 2 * Mask1 * G * 6 mma.sync a slot (4 rows rounded), 96 exact and 64
-// rounded at (2, 2), 9216 and 6144 a block and step (one digit limb on N:
-// 144 and 112); an mma takes its time whatever share of its columns
-// carries work (chip_smoke.py's mac_issue counts both).  Every
-// instantiation runs this one MAC form, the split halves (K8) and the
-// sample pipelines (K10) included.
+// (0.54 GB rounded); at (2, 3) half a step's rows a block, 2^14 / 2 x
+// 147,456 B = 1.2 GB (2.4 GB unpaired).  Issued: 2 * Mask1 * G * 6
+// mma.sync a slot (4 rows rounded), 96 exact and 64 rounded at (2, 2),
+// 6144 and 4096 a block and step, 1536 and 1024 a sample (one digit limb
+// on N: 144 and 112 a slot); at (2, 3) 144 exact a slot, 4608 a block and
+// step and 2304 a sample in the pair (1.5x (2, 2)'s: G = 6), where
+// unpaired a block of 2 issued 9216, 4608 a sample.  An mma takes its time
+// whatever share of its columns carries work (chip_smoke.py's mac_issue
+// counts both).  Every instantiation runs this one MAC form, the split
+// halves (K8) and the sample pipelines (K10) included.
 
 #pragma once
 
@@ -141,6 +170,9 @@ struct Shape {
   // a slot's limbs ([g][limb][sample][32 bytes]), or its hi channel
   static constexpr int kRegionWords =
       kS * (16 * kG > 32 * M ? 16 * kG : 32 * M);
+  // blocks a cluster: two where a block holds two samples, so that the
+  // pair's MAC puts 2kS = 4 samples on the mma's N (the head of this file)
+  static constexpr int kPair = kS == 2 ? 2 : 1;
 };
 
 // The key rows of one step (ops/key_rows.py, key_rows.cu): slot-major, MAC
@@ -198,6 +230,71 @@ __device__ __forceinline__ void wait_rows() {
   __syncwarp();
 }
 
+// The pair of a cluster: this block's rank in it, the address of a word of
+// this block's shared memory in the shared memory of block `rank`
+// (shared::cluster, a 32-bit address), a 16-byte load and store there
+// (16-byte aligned), and the
+// barrier of both blocks' threads (release, then acquire, so that every
+// access before it, local or remote, is seen after it)
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ uint32_t cluster_addr(const uint32_t* p,
+                                                 int rank) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(d)
+               : "r"((uint32_t)__cvta_generic_to_shared(p)), "r"(rank));
+  return d;
+}
+
+__device__ __forceinline__ void ld_cluster4(uint32_t a, uint32_t& v0,
+                                            uint32_t& v1, uint32_t& v2,
+                                            uint32_t& v3) {
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v0), "=r"(v1), "=r"(v2), "=r"(v3)
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster4(uint32_t a,
+                                            const uint32_t (&v)[4]) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   a),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::
+          : "memory");
+}
+
+// The pair's layout of a slot's digit limbs: word (tig, half) of the row
+// of digit polynomial g, limb i, sample s (its K bytes 4tig..4tig+3, 16
+// more for half 1) at this word of the slot's region, so that the 2G words
+// a thread of the MAC reads as its B fragments (limb i of sample s at its
+// tig, every g) lie together: 2G/4 16-byte loads
+template <int kG, int kS>
+__host__ __device__ constexpr int pair_limb_word(int i, int s, int tig, int g,
+                                                 int half) {
+  return ((i * kS + s) * 4 + tig) * 2 * kG + 2 * g + half;
+}
+
+// The barrier of the step's phases: the block's, or the pair's
+template <int kPair>
+__device__ __forceinline__ void pair_sync() {
+  if constexpr (kPair == 1)
+    __syncthreads();
+  else
+    cluster_sync();
+}
+
 // The output group in which key limb row L meets digit limb i (the table
 // of ops/transform._mac_limb_table: exact, B then A0..A3, row 5 = 4*vlo;
 // rounded, A0..A3), -1 where the pair is not used
@@ -227,9 +324,13 @@ __host__ __device__ constexpr int mac_group(bool rounded, int L, int i) {
 // the samples [q*kS/kQ, (q+1)*kS/kQ), the other columns zero and not
 // stored.  kPartial (K10's v2): the groups are left partly combined, A0 +
 // A1<<8 + A2<<16 in the lo channel and A3<<24 + B (exact; A3 rounded) in
-// the hi channel's place, for combine_pass.
+// the hi channel's place, for combine_pass.  kPair = 2 (K1 and K3 at kS =
+// 2): the MAC of both blocks of the cluster, the calling warp (of either)
+// owning the slot for both: the mma's N holds the pair's 2kS samples
+// (sample n is sample n % kS of block n / kS, read from that block's limbs
+// of the slot and stored into its channels, local or remote).
 template <int M, int D, bool kRounded, int kHalf = -1, int kQ = 1,
-          bool kPartial = false>
+          bool kPartial = false, int kPair = 1>
 __device__ __forceinline__ void mac_slot(
     int p, const int8_t* __restrict__ rows, uint32_t* arow, uint32_t* work,
     uint32_t* limbs, bool fetch = true, uint32_t* hi_x = nullptr, int q = 0) {
@@ -253,13 +354,26 @@ __device__ __forceinline__ void mac_slot(
   const int bn = gid >> 1, bi = gid & 1;
   const bool mine = bn >= n0 && bn < n0 + kSub;    // kQ = 1: bn < kS
   uint32_t bf[kGn][2];
+  if constexpr (kPair > 1) {
+    static_assert(kHalf < 0 && kQ == 1 && !kPartial && 2 * kS * kPair == 8 &&
+                      kGn % 2 == 0,
+                  "the pair runs K1's and K3's MAC with N full");
+    // from sample bn's block, in the pair's layout (pair_limb_word)
+    const uint32_t b0 = cluster_addr(
+        reg + pair_limb_word<S::kG, kS>(bi, bn % kS, tig, 0, 0), bn / kS);
 #pragma unroll
-  for (int g = 0; g < kGn; ++g) {
-    const uint32_t* wb =
-        kQ == 1 ? reg + (((kG0 + g) * 2 + bi) * kS + bn) * 8
-                : reg + ((bn * S::kG + kG0 + g) * 2 + bi) * 8;
-    bf[g][0] = mine ? wb[tig] : 0u;
-    bf[g][1] = mine ? wb[tig + 4] : 0u;
+    for (int g = 0; g < kGn; g += 2)
+      ld_cluster4(b0 + 8 * g, bf[g][0], bf[g][1], bf[g + 1][0],
+                  bf[g + 1][1]);
+  } else {
+#pragma unroll
+    for (int g = 0; g < kGn; ++g) {
+      const uint32_t* wb =
+          kQ == 1 ? reg + (((kG0 + g) * 2 + bi) * kS + bn) * 8
+                  : reg + ((bn * S::kG + kG0 + g) * 2 + bi) * 8;
+      bf[g][0] = mine ? wb[tig] : 0u;
+      bf[g][1] = mine ? wb[tig + 4] : 0u;
+    }
   }
   wait_rows();    // the rows are in arow; the limbs are read (hi goes there)
 
@@ -270,7 +384,7 @@ __device__ __forceinline__ void mac_slot(
   // 1/3 (tile 1): entry (k, u) is byte 31 - k + u, and u = 4tig (+16).
   const int w = 7 - gid + tig;
   const int n = tig;                              // this thread's sample
-  const bool store = n < kS && n >= n0 && n < n0 + kSub;
+  const bool store = kPair > 1 || (n < kS && n >= n0 && n < n0 + kSub);
 #pragma unroll 1
   for (int o = 0; o < M; ++o) {
     int d[2][kRows][4];
@@ -298,7 +412,9 @@ __device__ __forceinline__ void mac_slot(
     // sample n's columns: limb i of row gid in d[.][.][i], of row gid + 8
     // in d[.][.][2 + i], each (row, limb) shifted by its group (mac_group):
     // lo = A0 + A1<<8 + A2<<16 + A3<<24 in uint32 to the lo channel, hi =
-    // B (row 0 x limb 0) over the slot's consumed limbs
+    // B (row 0 x limb 0) over the slot's consumed limbs (the pair: the 4
+    // words k = 4gid + j of each, stored as one 16-byte vector)
+    uint32_t lo4[4], hi4[4];
 #pragma unroll
     for (int tile = 0; tile < 2; ++tile)
 #pragma unroll
@@ -318,7 +434,10 @@ __device__ __forceinline__ void mac_slot(
         const uint32_t hi = (uint32_t)d[tile][0][2 * r];
         uint32_t* wl = work + n * S::kWorkWords + (o * kL + p) * kR + k;
         uint32_t* hl = limbs + p * S::kRegionWords + (n * M + o) * kR + k;
-        if constexpr (kHalf < 0 && kPartial) {
+        if constexpr (kPair > 1) {
+          lo4[(r == 0 ? 3 : 1) - tile] = lo;     // k - 4gid
+          hi4[(r == 0 ? 3 : 1) - tile] = hi;
+        } else if constexpr (kHalf < 0 && kPartial) {
           *wl = lo;
           *hl = kRounded ? a3 : (a3 << 24) + hi;
         } else if constexpr (kHalf < 0) {
@@ -337,6 +456,18 @@ __device__ __forceinline__ void mac_slot(
           }
         }
       }
+    if constexpr (kPair > 1) {
+      // into sample n's block: sample n % kS there
+      st_cluster4(cluster_addr(work + (n % kS) * S::kWorkWords +
+                                   (o * kL + p) * kR + 4 * gid,
+                               n / kS),
+                  lo4);
+      if (!kRounded)
+        st_cluster4(cluster_addr(limbs + p * S::kRegionWords +
+                                     ((n % kS) * M + o) * kR + 4 * gid,
+                                 n / kS),
+                    hi4);
+    }
   }
   __syncwarp();   // the next slot rewrites the key rows
 }
@@ -965,6 +1096,12 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
       kVariant != kSplitHalves && pipe_parts(kVariant) == 1 &&
       (kStage == kDecFwdMac || kPart == kDecFwdMacInv || kPart == kFull);
   constexpr int kChanRoles = (kRounded ? 1 : 2) * kS * M;
+  // the pair (Shape::kPair = 2): block rank r of the cluster runs the MAC
+  // of slots [r * 32, r * 32 + 32) for both blocks' samples
+  constexpr int kPair = S::kPair;
+  static_assert(kPair == 1 || (kPart == kFull && kVariant == kAsIs),
+                "only K1 and K3 run as pairs");
+  constexpr int kSlots = kL / kPair;             // MAC slots a block
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* acc_s = smem;                        // [kS][M][1024] q-layout
   uint32_t* work = acc_s + kS * kAccWords;       // [kS][M][64][32]
@@ -976,6 +1113,7 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
   const int ns = min(kS, batch - b0);
   uint32_t* arow = arows + warp * arow_words<M, D, kRounded, kVariant>();
   uint32_t* hi_x = arows + kWarps * arow_words<M, D, kRounded, kVariant>();
+  const int slot0 = kPair > 1 ? cluster_rank() * kSlots : 0;
 
   for (int e = tid; e < kS * kAccWords; e += kThreads) {
     const int s = e / kAccWords;
@@ -1007,7 +1145,7 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
     // (arow is the MAC's alone)
     if constexpr (kMacLoop)
       if (kVariant != kNoKeySplit || st == 0)
-        fetch_rows<M, D, kRounded>(warp, step_rows, arow);
+        fetch_rows<M, D, kRounded>(slot0 + warp, step_rows, arow);
 
     // 1-3. a warp a (sample, digit polynomial g = o*D + d): rotation,
     // digit and forward transform in registers, the split into int8 limbs
@@ -1063,6 +1201,18 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
             for (int m = 0; m < kL / 2; ++m)
               work[(s * kG + g) * kN + rev6c(2 * m) * 32 + lane] =
                   (uint32_t)(x[2 * m] + x[2 * m + 1]);
+          } else if constexpr (kPair > 1) {
+            // byte lane of the row: word (lane >> 2) & 3, half lane >> 4
+            uint8_t* lb = reinterpret_cast<uint8_t*>(limbs) + (lane & 3) +
+                          4 * pair_limb_word<kG, kS>(0, s, (lane >> 2) & 3, g,
+                                                     lane >> 4);
+            constexpr int kLimb1 = 4 * pair_limb_word<kG, kS>(1, 0, 0, 0, 0);
+#pragma unroll
+            for (int f = 0; f < kL; ++f) {
+              uint8_t* reg = lb + rev6c(f) * S::kRegionWords * 4;
+              reg[0] = (uint8_t)limb0(x[f]);
+              reg[kLimb1] = (uint8_t)limb1(x[f]);
+            }
           } else {
             uint8_t* lb = reinterpret_cast<uint8_t*>(limbs);
 #pragma unroll
@@ -1080,7 +1230,7 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
           }
         }
       }
-      __syncthreads();
+      pair_sync<kPair>();   // the pair: the peer's MAC reads these limbs
       if constexpr (staged_fwd(kVariant)) staged_forward<M, D, kVariant>(
           work, limbs);
     }
@@ -1102,11 +1252,11 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
         key_slot<M, D, kRounded>(p, step_rows, arow, work, limbs);
       __syncthreads();
     } else if constexpr (kMacLoop) {
-      for (int p = warp; p < kL; p += kWarps)
-        mac_slot<M, D, kRounded, -1, 1, kVariant == kUnfusedCombine>(
-            p, step_rows, arow, work, limbs,
-            kVariant != kNoKeySplit && p != warp);
-      __syncthreads();
+      for (int j = warp; j < kSlots; j += kWarps)
+        mac_slot<M, D, kRounded, -1, 1, kVariant == kUnfusedCombine, kPair>(
+            slot0 + j, step_rows, arow, work, limbs,
+            kVariant != kNoKeySplit && j != warp);
+      pair_sync<kPair>();   // the pair: every channel, local or remote
       if constexpr (kVariant == kUnfusedCombine) {
         combine_pass<M, D, kRounded>(work, limbs);
         __syncthreads();
@@ -1232,6 +1382,41 @@ blind_rotate_kernel(const int32_t* __restrict__ acc_in,
       acc_out[(size_t)(b0 + s) * kOutWords + on] = (int32_t)v;
     }
   }
+  // the pair: neither block leaves while its peer may reach its shared
+  // memory (the last remote access precedes the last MAC barrier)
+  if constexpr (kPair > 1) cluster_sync();
+}
+
+// A block's shared memory in bytes, set as the kernel's dynamic maximum
+template <int M, int D, bool kRounded, int kPart, int kVariant>
+cudaError_t set_smem(int* smem) {
+  using S = Shape<M, D>;
+  *smem = (S::kS * (S::kAccWords + S::kWorkWords) + kL * S::kRegionWords +
+           S::kWarps * arow_words<M, D, kRounded, kVariant>() +
+           hi_x_words<M, D, kVariant>()) *
+          (int)sizeof(uint32_t);
+  return cudaFuncSetAttribute(
+      blind_rotate_kernel<M, D, kRounded, kPart, kVariant>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+}
+
+// The launch of a pair kernel: clusters of Shape::kPair blocks, the grid
+// rounded up to whole clusters (a block past the batch holds no sample and
+// joins every barrier); the caller sets the grid
+template <int M, int D>
+cudaLaunchConfig_t pair_config(int smem, cudaStream_t stream,
+                               cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = Shape<M, D>::kPair;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(Shape<M, D>::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <int M, int D, bool kRounded, int kPart = kFull, int kVariant = kAsIs>
@@ -1240,19 +1425,24 @@ cudaError_t launch(const int32_t* acc_in, int32_t* acc_out,
                    int start, int chunk, uint32_t offset, int log2_base,
                    cudaStream_t stream) {
   using S = Shape<M, D>;
-  const int smem = (S::kS * (S::kAccWords + S::kWorkWords) +
-                    kL * S::kRegionWords +
-                    S::kWarps * arow_words<M, D, kRounded, kVariant>() +
-                    hi_x_words<M, D, kVariant>()) *
-                   (int)sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      blind_rotate_kernel<M, D, kRounded, kPart, kVariant>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int smem;
+  cudaError_t err = set_smem<M, D, kRounded, kPart, kVariant>(&smem);
   if (err != cudaSuccess) return err;
-  blind_rotate_kernel<M, D, kRounded, kPart, kVariant>
-      <<<(batch + S::kS - 1) / S::kS, S::kThreads, smem, stream>>>(
-          acc_in, acc_out, bara_t, rows, batch, start, chunk, offset,
-          log2_base);
+  const int blocks = (batch + S::kS - 1) / S::kS;
+  if constexpr (S::kPair == 1) {
+    blind_rotate_kernel<M, D, kRounded, kPart, kVariant>
+        <<<blocks, S::kThreads, smem, stream>>>(
+            acc_in, acc_out, bara_t, rows, batch, start, chunk, offset,
+            log2_base);
+  } else {
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = pair_config<M, D>(smem, stream, &attr);
+    cfg.gridDim = dim3((blocks + S::kPair - 1) / S::kPair * S::kPair);
+    err = cudaLaunchKernelEx(
+        &cfg, blind_rotate_kernel<M, D, kRounded, kPart, kVariant>, acc_in,
+        acc_out, bara_t, rows, batch, start, chunk, offset, log2_base);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
 }
 
@@ -1298,6 +1488,46 @@ inline int blind_rotate_launch_any(const void* acc_in, void* acc_out,
   else
     err = cudaErrorInvalidValue;
   return (int)err;
+}
+
+// Blocks a cluster of K1 and K3 at (mask1, decomp): Shape::kPair, 0 for a
+// pair that is not instantiated
+inline int blind_rotate_pair_any(int mask1, int decomp) {
+  return mask1 == 2 && decomp == 2   ? Shape<2, 2>::kPair
+         : mask1 == 3 && decomp == 2 ? Shape<3, 2>::kPair
+         : mask1 == 2 && decomp == 3 ? Shape<2, 3>::kPair
+                                     : 0;
+}
+
+template <int M, int D, bool kRounded>
+int active_clusters(int* out) {
+  int smem;
+  cudaError_t err = set_smem<M, D, kRounded, kFull, kAsIs>(&smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = pair_config<M, D>(smem, nullptr, &attr);
+  cfg.gridDim = dim3(2 * 132 * Shape<M, D>::kPair);
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, blind_rotate_kernel<M, D, kRounded>, &cfg);
+}
+
+// The clusters of K3 at (mask1, decomp) that the device `device` holds at
+// once (cudaOccupancyMaxActiveClusters, one cluster a block where the
+// shape is not paired) into *out; returns the CUDA error code
+inline int blind_rotate_clusters_any(int mask1, int decomp, int rounded,
+                                     int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (mask1 == 2 && decomp == 2)
+    return rounded ? active_clusters<2, 2, true>(out)
+                   : active_clusters<2, 2, false>(out);
+  if (mask1 == 3 && decomp == 2)
+    return rounded ? active_clusters<3, 2, true>(out)
+                   : active_clusters<3, 2, false>(out);
+  if (mask1 == 2 && decomp == 3)
+    return rounded ? active_clusters<2, 3, true>(out)
+                   : active_clusters<2, 3, false>(out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -16,3 +16,17 @@ extern "C" int blind_rotate_chunk_launch(const void* acc_in, void* acc_out,
                                  chunk, mask1, decomp, offset, log2_base,
                                  rounded, device, stream);
 }
+
+// Blocks a cluster of this kernel at (mask1, decomp) (2: the pair of
+// blind_rotate_body.cuh; 0: not instantiated)
+extern "C" int blind_rotate_chunk_cluster(int mask1, int decomp) {
+  return blind_rotate_pair_any(mask1, decomp);
+}
+
+// The clusters of this kernel that the device holds at once, into *out
+// (cudaOccupancyMaxActiveClusters); returns the CUDA error code
+extern "C" int blind_rotate_chunk_clusters(int mask1, int decomp,
+                                           int rounded, int device,
+                                           int* out) {
+  return blind_rotate_clusters_any(mask1, decomp, rounded, device, out);
+}

@@ -37,3 +37,9 @@ extern "C" int cmux_step_launch(const void* acc_in, void* acc_out,
                                  mask1, decomp, offset, log2_base, rounded,
                                  device, stream);
 }
+
+// Blocks a cluster of this kernel at (mask1, decomp) (2: the pair of
+// blind_rotate_body.cuh; 0: not instantiated)
+extern "C" int cmux_step_cluster(int mask1, int decomp) {
+  return blind_rotate_pair_any(mask1, decomp);
+}

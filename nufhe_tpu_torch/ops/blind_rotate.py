@@ -22,10 +22,12 @@ import torch
 from . import cmux
 from . import key_rows as kr
 
-# launches of the CUDA kernel (not of the plain version), and the CMUX
-# steps those launches ran
+# launches of the CUDA kernel (not of the plain version), the CMUX steps
+# those launches ran, and the launches that ran as clusters of two blocks
+# (``cmux.cluster_size``)
 launches = 0
 steps = 0
+paired_launches = 0
 
 
 def blind_rotate_chunk_plain(acc, bara_t, key, start, chunk, *, offset,
@@ -67,7 +69,7 @@ def blind_rotate_chunk(acc, bara_t, key, start, chunk, *, offset, log2_base):
     tensor runs the kernel on the key's int8 rows; a CPU tensor the plain
     version on the int64 key (``key_rows.key_form``).  Returns a new
     tensor (``acc`` is not updated in place)."""
-    global launches, steps
+    global launches, steps, paired_launches
     rounded, mask1, decomp_length, start, chunk = check_chunk(
         "blind_rotate_chunk", acc, bara_t, key, start, chunk)
     if acc.device.type == 'cpu':
@@ -79,4 +81,6 @@ def blind_rotate_chunk(acc, bara_t, key, start, chunk, *, offset, log2_base):
                       log2_base=log2_base, rounded=rounded)
     launches += 1
     steps += chunk
+    paired_launches += cmux.cluster_size("blind_rotate_chunk", mask1,
+                                         decomp_length) > 1
     return out

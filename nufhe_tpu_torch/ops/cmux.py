@@ -21,14 +21,19 @@ negacyclic in Z[X]/(N=1024), mod 2^32 — the function of the TPU kernel
   ``ops/transform.KERNEL_SHAPES``, and the wrapper raises on any other.
 """
 
+import ctypes
+import functools
+
 import torch
 
 from ..numeric import wrap_i32
 from . import key_rows as kr
 from . import transform as tf
 
-# launches of the CUDA kernel (not of the plain version)
+# launches of the CUDA kernel (not of the plain version), and those of
+# them that ran as clusters of two blocks (:func:`cluster_size`)
 launches = 0
+paired_launches = 0
 
 
 def _digits(acc, p, offset, log2_base, decomp_length):
@@ -141,11 +146,22 @@ def launch(entry, acc, x, rows, args, *, offset, log2_base, rounded=None,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def cluster_size(entry, mask1, decomp_length):
+    """Blocks a cluster of the K1/K3 entry ``entry`` (``cmux_step``,
+    ``blind_rotate_chunk``) at (mask1, l), as its launcher chooses them
+    (``<entry>_cluster`` in the entry's library): 2 where a block holds two
+    samples and the pair of blocks shares its MAC, else 1."""
+    from ..kernels import build
+    return build.function(entry, entry + "_cluster",
+                          [ctypes.c_int, ctypes.c_int])(mask1, decomp_length)
+
+
 def cmux_step(acc, p, key_row, *, offset, log2_base):
     """K1: one CMUX step.  A CUDA tensor runs the kernel on the key row's
     int8 rows; a CPU tensor the plain version on its int64 row
     (``key_rows.key_form``).  Returns a new tensor."""
-    global launches
+    global launches, paired_launches
     rounded, mask1, decomp_length = check_step("cmux_step", acc, p, key_row)
     if acc.device.type == 'cpu':
         return cmux_step_plain(acc, p, key_row, offset=offset,
@@ -153,4 +169,5 @@ def cmux_step(acc, p, key_row, *, offset, log2_base):
     out = launch("cmux_step", acc, p, key_row, (mask1, decomp_length),
                  offset=offset, log2_base=log2_base, rounded=rounded)
     launches += 1
+    paired_launches += cluster_size("cmux_step", mask1, decomp_length) > 1
     return out

@@ -44,7 +44,8 @@ def _inputs(seed, b, rows):
 
 
 def _counts():
-    return cmux.launches, brc.launches
+    return (cmux.launches, cmux.paired_launches, brc.launches, brc.steps,
+            brc.paired_launches)
 
 
 def test_chunk_plain_matches_pallas_chunk_interpret():
@@ -292,12 +293,12 @@ def test_k3_operand_step_equals_cmux_step(transform_type):
 
 def _stacked_mac(key_row, a0, a1, mask1):
     """Every slot's MAC in K3's stacked form, as the kernel issues it: per
-    block of kS samples (4 at (2, 2), else 2; a ragged last block padded
-    with zero samples) the mma's 8 N columns hold limb n & 1 of sample
-    n >> 1 for n < 2*kS and zeros above; each key limb row's Toeplitz
-    operand times those columns is an int32 accumulator of its own; sample
-    n's lo is the sum of its (row, limb) columns shifted by 8 * (group -
-    first group of lo) mod 2^32 (:func:`_k3_group`; the unused pairs
+    group of the 4 samples on the mma's N (a block of kS = 4 at (2, 2),
+    else the cluster's pair of blocks of kS = 2; a ragged last group
+    padded with zero samples) the 8 N columns hold limb n & 1 of sample
+    n >> 1; each key limb row's Toeplitz operand times those columns is
+    an int32 accumulator of its own; sample n's lo is the sum of its (row,
+    limb) columns shifted by 8 * (group - first group of lo) mod 2^32 (:func:`_k3_group`; the unused pairs
     dropped), its hi (exact) row 0's limb-0 column alone.
 
     :param a0, a1: (B, G, L, R) digit limbs, natural slot order.
@@ -306,7 +307,7 @@ def _stacked_mac(key_row, a0, a1, mask1):
     """
     rows, rounded = _k3_rows(key_row)
     b, g_sz, l_sz, r_sz = a0.shape
-    ks = 4 if (mask1, g_sz // mask1) == (2, 2) else 2
+    ks = 4          # samples on N: (2, 2)'s block, or a pair of blocks
     nb = -(-b // ks)
 
     def blocks(a):
@@ -323,7 +324,6 @@ def _stacked_mac(key_row, a0, a1, mask1):
     for row in range(rows.shape[3]):
         d = torch.einsum('gotku,bngtu->bnotk', _toeplitz(rows, row), cols)
         largest = max(largest, int(d.abs().max()))
-        assert not d[:, 2 * ks:].any()          # the zero columns
         for i in range(2):
             part = d[:, i:2 * ks:2]
             s = _k3_group(rounded, row, i)
@@ -385,16 +385,37 @@ def test_k3_stacked_mac_matches_per_group(shape, transform_type, limbs):
 def test_mac_issue_counts():
     """K3's MAC issues 96 (exact) and 64 (rounded) mma.sync a slot at
     (2, 2), where one digit limb on N took 144 and 112, and 9/12 and 7/8 of
-    their N columns carry work; the kS = 2 shapes keep half of N empty
-    (``chip_smoke.mac_issue``, kS read from the kernel's source)."""
+    their N columns carry work; the kS = 2 shapes run as pairs of blocks,
+    whose 4 samples fill N as (2, 2)'s block does (``chip_smoke.mac_issue``,
+    kS and the pair read from the kernel's source)."""
     import chip_smoke
     assert chip_smoke.block_samples(2, 2) == 4
     assert chip_smoke.block_samples(3, 2) == chip_smoke.block_samples(2, 3) \
         == 2
+    assert chip_smoke.pair_blocks(2, 2) == 1
+    assert chip_smoke.pair_blocks(3, 2) == chip_smoke.pair_blocks(2, 3) == 2
     mac_issue = chip_smoke.mac_issue
     assert mac_issue(2, 2, rounded=False) == (96, Fraction(9, 12))
     assert mac_issue(2, 2, rounded=True) == (64, Fraction(7, 8))
-    assert mac_issue(3, 2, rounded=False) == (216, Fraction(9, 24))
-    assert mac_issue(2, 3, rounded=True) == (96, Fraction(7, 16))
+    assert mac_issue(3, 2, rounded=False) == (216, Fraction(9, 12))
+    assert mac_issue(2, 3, rounded=True) == (96, Fraction(7, 8))
     with pytest.raises(ValueError):
         mac_issue(3, 3, rounded=False)
+
+
+def test_paired_launches_reset_with_the_launch_counters():
+    """``paired_launches`` of K1 and K3 (launches that ran as two-block
+    clusters) is set to 0 with the launch counters and K3's steps
+    (``chip_smoke.reset_counts``), and a CPU rotation leaves it there."""
+    import chip_smoke
+    cmux.launches = cmux.paired_launches = 3
+    brc.launches, brc.steps, brc.paired_launches = 2, 100, 2
+    chip_smoke.reset_counts()
+    assert _counts() == (0, 0, 0, 0, 0)
+    accum, bara, bk_coeff = _inputs(5, 3, 2)
+    key = ttf.bootstrap_key_transformed(bk_coeff, "cpu")
+    acc = brc.blind_rotate_chunk(
+        torch.from_numpy(accum), torch.from_numpy(np.ascontiguousarray(
+            bara.T)), key, 0, 2, **KW)
+    cmux.cmux_step(acc, torch.from_numpy(bara[:, 0].copy()), key[0], **KW)
+    assert _counts() == (0, 0, 0, 0, 0)

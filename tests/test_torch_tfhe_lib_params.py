@@ -147,6 +147,23 @@ def test_gates_equal_the_reference_word_for_word(keys, mode, gate):
     assert torch.equal(data.decrypt(secret, *want), truth)
 
 
+def test_cpu_gate_moves_no_kernel_counter(keys):
+    """The NAND on the CPU (a chunk and a tail) runs the plain versions:
+    K1's and K3's launches, K3's steps and the launches that ran as pairs
+    of blocks (``paired_launches``, which the card's (2, 3) launches move)
+    stay where they were."""
+    secret, sides, g = keys
+    prog, _ = sides["NTT"]
+    counters = (cmux.launches, cmux.paired_launches, brc.launches, brc.steps,
+                brc.paired_launches)
+    bits = [torch.randint(0, 2, (BATCH,), generator=g).bool()
+            for _ in range(2)]
+    cts = [prog.ciphertext(*data.encrypt(secret, b, g)) for b in bits]
+    prog.virtual_machine().gate_nand(*cts)
+    assert (cmux.launches, cmux.paired_launches, brc.launches, brc.steps,
+            brc.paired_launches) == counters
+
+
 @pytest.mark.parametrize("mode", ["NTT", "FFT"])
 def test_chunk_and_tail_equal_the_per_step_rotation(keys, mode,
                                                     monkeypatch):
