@@ -2,7 +2,16 @@
 configuration, its traffic mix (``benchmark/traffic/<mix>.json``), the
 client that drives the mix's kind (``benchmark/clients/<kind>.py``, or
 ``<kind>.<parallel>.py`` on several cards) and the readers of its
-per-layer metrics (``benchmark/metrics/<metric>.py``)."""
+per-layer metrics (``benchmark/metrics/<metric>.py``).
+
+A reader's file defines ``read(run)``, which returns the metric or None
+where the run holds nothing to read.  It may declare ``COUNTERS``, a tuple
+of program counters (dotted names of module-level ints under
+``nufhe_tpu_torch``, such as ``"ops.blind_rotate.steps"``), which the run
+resets before its traced slice and reads after it into
+``run.slice_counters`` under those names; ``run.events`` holds the
+slice's exported trace events.  It may define ``on_synthetic(run)``, the
+value ``read`` has to give on the tests' synthetic trace."""
 
 import importlib.util
 import json
@@ -78,7 +87,21 @@ class Cell:
     def client_class(self):
         return load_module("clients", self.client_name).Client
 
+    def counters(self):
+        """The program counters that the cell's per-layer readers declare,
+        each with the first metric that declares it."""
+        out = {}
+        for m in self.per_layer:
+            for name in getattr(reader_module(m["name"]), "COUNTERS", ()):
+                out.setdefault(name, m["name"])
+        return out
+
+
+def reader_module(metric_name):
+    """The module of a per-layer metric's own file."""
+    return load_module("metrics", metric_name)
+
 
 def reader(metric_name):
     """The ``read(run)`` function of a per-layer metric's own file."""
-    return load_module("metrics", metric_name).read
+    return reader_module(metric_name).read

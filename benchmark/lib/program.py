@@ -2,22 +2,25 @@
 
 The one module of the harness that imports the program: its key and
 ciphertext containers, ``VirtualMachine``, the data-parallel mesh, the
-kernels' launch counters and the CUDA function names of its kernels.
+kernels' launch counters, the program counters that per-layer readers
+declare, and the CUDA function names of its kernels.
 """
+
+import importlib
 
 import numpy as np
 import torch
 
 import nufhe_tpu_torch as nft
-from nufhe_tpu_torch.ops import blind_rotate, cmux, keyswitch, lanes_step
 
 PARAM_KEYS = ('transform_type', 'tlwe_mask_size', 'tlwe_polynomial_degree',
               'lwe_size', 'bs_decomp_length', 'bs_log2_base',
               'ks_decomp_length', 'ks_log2_base')
 
-# launch counters of the port's kernels, by the benchmark's names
-COUNTERS = {'k3': blind_rotate, 'k1': cmux, 'k2': keyswitch,
-            'k4': lanes_step}
+# launch counters of the port's kernels: the benchmark's name -> the
+# program counter's dotted name
+LAUNCHES = {'k3': 'ops.blind_rotate.launches', 'k1': 'ops.cmux.launches',
+            'k2': 'ops.keyswitch.launches', 'k4': 'ops.lanes_step.launches'}
 
 # CUDA function -> the kernel it belongs to; K1 is K3's function at a
 # chunk of one step, told apart by the counters
@@ -26,13 +29,21 @@ PORT_FUNCTIONS = {'blind_rotate_kernel': 'k3', 'keyswitch_kernel': 'k2',
                   'lanes_inverse_kernel': 'k4'}
 
 
-def reset_counters():
-    for mod in COUNTERS.values():
-        mod.launches = 0
-
-
-def read_counters():
-    return {name: mod.launches for name, mod in COUNTERS.items()}
+def program_counter(name, metric):
+    """(module, attribute) of the program counter ``name``, the dotted name
+    of a module-level int under ``nufhe_tpu_torch`` (``ops.blind_rotate.
+    steps``) that ``metric`` declares: a per-layer metric, or the harness
+    for the launch counters."""
+    path, _, attr = name.rpartition('.')
+    try:
+        module = importlib.import_module('nufhe_tpu_torch.' + path)
+    except ImportError:
+        module = None
+    if not path or type(getattr(module, attr, None)) is not int:
+        raise ValueError("%r declares the counter %r, "
+                         "which is no module-level int of nufhe_tpu_torch"
+                         % (metric, name))
+    return module, attr
 
 
 class Program:
@@ -42,10 +53,17 @@ class Program:
     ``PerformanceParameters`` as it is.  ``control`` (the configuration's
     ``control`` entry, or None) switches on the program's own path of lower
     precision: keys of ``PARAM_KEYS`` change the parameters the key is
-    prepared with, the others are performance settings.
+    prepared with, the others are performance settings.  ``counters``
+    maps the program counters that the cell's per-layer readers declare to
+    the metric that declares each (``manifest.Cell.counters``); they are
+    reset and read with the launch counters (``LAUNCHES``).
     """
 
-    def __init__(self, cfg, raw, device, control=None):
+    def __init__(self, cfg, raw, device, control=None, counters=None):
+        self.counters = {key: program_counter(name, 'the harness')
+                         for key, name in LAUNCHES.items()}
+        self.counters.update((name, program_counter(name, metric))
+                             for name, metric in (counters or {}).items())
         control = dict(control or {})
         kwargs = {k: control.pop(k, cfg[k]) for k in PARAM_KEYS}
         self.params = nft.NuFHEParameters(**kwargs)
@@ -62,6 +80,16 @@ class Program:
             ks_cv, cfg['ks_log2_base'])
         self.device = torch.device(device)
         self.noise_var = raw['ks_var']
+
+    def reset_counters(self):
+        for module, attr in self.counters.values():
+            setattr(module, attr, 0)
+
+    def read_counters(self):
+        """The launch counters by the benchmark's names, and the declared
+        program counters by their dotted names."""
+        return {key: getattr(module, attr)
+                for key, (module, attr) in self.counters.items()}
 
     def prepare_keys(self, lanes=False):
         """The port's preparation of the cloud key on the device: the

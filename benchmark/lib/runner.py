@@ -28,6 +28,7 @@ class Run:
         self.on_card = self.device.type == 'cuda'
         # filled by run_cell for the metric readers
         self.busy = None            # device_busy of this rank's slice
+        self.events = None          # this rank's exported slice events
         self.busy_s = self.window_s = None   # averaged over the ranks
         self.slice_counters = {}
         self.slice_requests = 0
@@ -103,7 +104,8 @@ def run_cell(cell, seed, seconds, trace, device, t_start, control=False,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(run.device)
     program = prog.Program(cfg, client.raw, device,
-                           cfg.get('control') if control else None)
+                           cfg.get('control') if control else None,
+                           counters=cell.counters())
     client.attach(program)
     run.sync()
     t0 = run.clock()
@@ -133,7 +135,7 @@ def run_cell(cell, seed, seconds, trace, device, t_start, control=False,
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=activities)
             prof.start()
-            prog.reset_counters()
+            program.reset_counters()
             span = torch.profiler.record_function(SLICE_SPAN)
             span.__enter__()
         ts = run.clock()
@@ -146,7 +148,7 @@ def run_cell(cell, seed, seconds, trace, device, t_start, control=False,
             span.__exit__(None, None, None)
             span = None
             prof.stop()
-            run.slice_counters = prog.read_counters()
+            run.slice_counters = program.read_counters()
             run.slice_requests = slice_n
         stop = te - t_w0 >= seconds and requests > slice_n
         if run.agree(stop):
@@ -157,7 +159,8 @@ def run_cell(cell, seed, seconds, trace, device, t_start, control=False,
     peaks = _gather_objects(run, peak)
 
     if trace:
-        run.busy = yardstick.device_busy(_export_events(prof), SLICE_SPAN)
+        run.events = _export_events(prof)
+        run.busy = yardstick.device_busy(run.events, SLICE_SPAN)
         figs = _gather_objects(run, (run.busy["busy_us"],
                                      run.busy["window_us"]))
         run.busy_s = sum(f[0] for f in figs) / len(figs) / 1e6

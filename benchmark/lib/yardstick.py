@@ -38,9 +38,12 @@ def cmux_mac_ops(cfg, samples, steps):
     counted as the int8 MAC that carries them: per sample and step,
     L slots x ((k+1) l 2R) digit limbs x (groups (k+1) R) key columns, two
     operations each; groups 5 for the exact engine ('NTT'), 4 for the
-    rounded key ('FFT').  N = 1024: L = 64, R = 32."""
+    rounded key ('FFT').  R = 32 and L = 2 N / R, the Nussbaumer transform's
+    length at degree N (``tlwe_polynomial_degree``): 64 at N = 1024, 32 at
+    N = 512."""
     k1 = cfg['tlwe_mask_size'] + 1
-    slots, r = 64, 32
+    r = 32
+    slots = 2 * cfg['tlwe_polynomial_degree'] // r
     contraction = k1 * cfg['bs_decomp_length'] * 2 * r
     groups = 4 if cfg['transform_type'] == 'FFT' else 5
     return 2.0 * slots * contraction * groups * k1 * r * samples * steps

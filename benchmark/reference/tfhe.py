@@ -6,29 +6,31 @@ vector, n CMUX steps ACC <- ACC + BK_i (x) [(X^{bara_i} - 1) ACC], sample
 extraction and a keyswitch.  It imports torch alone, nothing of the
 program, and takes the raw keys: the coefficient-domain bootstrap key and
 the keyswitch tables.  Every integer is an int64 holding a Torus32 value.
+The polynomial degree N, a power of two from 256 to 1024, and the mask
+size k are read from the tensors.
 
 The negacyclic products are those that define the two engine modes:
 
 - 'NTT' is exact: each product is the integer product mod (X^N + 1, 2^32);
-- 'FFT' is the rounded-key engine (``transform_type='FFT'``): the key is
-  taken to the Nussbaumer domain over Z/2^38 (N = 32 x 32, a 64-point
-  transform over Z[Y]/(Y^32 + 1) with root Y), and each side of each
-  residue, +v and -v, is rounded to round(v / 64) on its own; the wrap
-  terms of the pointwise products read the -v side.
+- 'FFT' is the rounded-key engine (``transform_type='FFT'``), defined at
+  N = 1024 alone: the key is taken to the Nussbaumer domain over Z/2^38
+  (N = 32 x 32, a 64-point transform over Z[Y]/(Y^32 + 1) with root Y),
+  and each side of each residue, +v and -v, is rounded to round(v / 64)
+  on its own; the wrap terms of the pointwise products read the -v side.
 
-Both run through one Nussbaumer transform, written as matrices of small
-integers (``forward_matrix``, ``inverse_matrix``) and applied with float64
-matrix products on limbs small enough that every sum is an exact integer
-below 2^53.  The exact mode is also the schoolbook product
-(``schoolbook``), which the tests hold it against.
+Both run through one Nussbaumer transform: N = M x R with R = 32 and
+M = N / 32, an L = 2M point transform over Z[Y]/(Y^R + 1) with the root
+Y^(R/M) of order L, written as matrices of small integers
+(``forward_matrix``, ``inverse_matrix``) and applied with float64 matrix
+products on limbs small enough that every sum is an exact integer below
+2^53.  The exact mode is also the schoolbook product (``schoolbook``),
+which the tests hold it against.
 """
 
 import torch
 
-N = 1024          # polynomial degree
-M = 32            # X-blocks: a polynomial is 32 blocks of 32
-R = 32            # Z[Y]/(Y^R + 1)
-L = 64            # transform length, 2M
+R = 32            # Z[Y]/(Y^R + 1): a polynomial is N / R blocks of R
+ROUNDED_N = 1024  # the one degree at which the 'FFT' rounding is defined
 MASK32 = 0xFFFFFFFF
 MASK38 = (1 << 38) - 1
 LIMB = 13         # bits of a limb in the exact float64 products
@@ -85,42 +87,64 @@ def _from_limbs(parts):
     return total
 
 
+def transform_shape(n):
+    """(M, L, shift) of the transform at degree ``n``: M = n / R blocks, an
+    L = 2M point transform, and log2 L, the shift that undoes the scale of
+    the unscaled inverse."""
+    if n & (n - 1) or not 256 <= n <= 1024:
+        raise ValueError("the reference takes N a power of two from 256 to "
+                         "1024, not N = %d" % n)
+    m = n // R
+    return m, 2 * m, (2 * m).bit_length() - 1
+
+
+def _check_rounded(n):
+    if n != ROUNDED_N:
+        raise ValueError("the rounded-key ('FFT') product is defined at N = "
+                         "%d alone, not at N = %d" % (ROUNDED_N, n))
+
+
 _MATRICES = {}
 
 
-def forward_matrix(device):
-    """(N, L*R) float64 of -1/0/1: the forward transform a -> a_hat,
-    a_hat[t] = sum_j Y^{jt} A_j with A_j(Y) = sum_i a[i*M + j] Y^i, as
-    a_hat.flatten() = a @ F."""
-    key = ('F', str(device))
+def forward_matrix(n, device):
+    """(n, L*R) float64 of -1/0/1: the forward transform a -> a_hat,
+    a_hat[t] = sum_j w^{jt} A_j with A_j(Y) = sum_i a[i*M + j] Y^i and the
+    root w = Y^(R/M), as a_hat.flatten() = a @ F."""
+    key = ('F', n, str(device))
     if key not in _MATRICES:
+        m, l, _ = transform_shape(n)
+        step = R // m
         i = torch.arange(R).view(R, 1, 1)
-        j = torch.arange(M).view(1, M, 1)
-        t = torch.arange(L).view(1, 1, L)
-        e = (i + j * t) % (2 * R)                 # Y^e, Y^R = -1
+        j = torch.arange(m).view(1, m, 1)
+        t = torch.arange(l).view(1, 1, l)
+        e = (i + step * j * t) % (2 * R)          # Y^e, Y^R = -1
         sign = torch.where(e < R, 1, -1)
-        rows = (i * M + j).expand(R, M, L).reshape(-1)
+        rows = (i * m + j).expand(R, m, l).reshape(-1)
         cols = (t * R + e % R).reshape(-1)
-        f = torch.zeros(N, L * R, dtype=torch.float64)
+        f = torch.zeros(n, l * R, dtype=torch.float64)
         f[rows, cols] = sign.reshape(-1).double()
         _MATRICES[key] = f.to(device)
     return _MATRICES[key]
 
 
-def inverse_matrix(device):
-    """(L*R, N) float64 in [-2, 2]: the unscaled inverse and fold, c_hat ->
-    L * c: p_j = sum_t Y^{-jt} c_hat[t], C_j = p_j + Y p_{j+M},
+def inverse_matrix(n, device):
+    """(L*R, n) float64 in [-2, 2]: the unscaled inverse and fold, c_hat ->
+    L * c: p_j = sum_t w^{-jt} c_hat[t], C_j = p_j + Y p_{j+M},
     c[i*M + j] = C_j[i]."""
-    key = ('I', str(device))
+    key = ('I', n, str(device))
     if key not in _MATRICES:
-        t = torch.arange(L).view(L, 1, 1)
+        m, l, _ = transform_shape(n)
+        step = R // m
+        t = torch.arange(l).view(l, 1, 1)
         k = torch.arange(R).view(1, R, 1)
-        j = torch.arange(M).view(1, 1, M)
-        inv = torch.zeros(L * R, N, dtype=torch.float64)
-        for e in ((k - j * t) % (2 * R), (k + 1 - (j + M) * t) % (2 * R)):
+        j = torch.arange(m).view(1, 1, m)
+        inv = torch.zeros(l * R, n, dtype=torch.float64)
+        for e in ((k - step * j * t) % (2 * R),
+                  (k + 1 - step * (j + m) * t) % (2 * R)):
             sign = torch.where(e < R, 1, -1)
-            rows = (t * R + k).expand(L, R, M).reshape(-1)
-            cols = ((e % R) * M + j).reshape(-1)
+            rows = (t * R + k).expand(l, R, m).reshape(-1)
+            cols = ((e % R) * m + j).reshape(-1)
             inv.index_put_((rows, cols), sign.reshape(-1).double(),
                            accumulate=True)
         _MATRICES[key] = inv.to(device)
@@ -151,23 +175,27 @@ def prepare_bootstrap_key(bk_coeff, exact):
         polynomials: for each transform point t the R x R matrix T with
         out[k] = sum_u p[u] T[u, k] in Z[Y]/(Y^R + 1), the wrap terms
         (u > k) read the -v side.  Residues mod 2^38 (exact) or the
-        rounded sides round(+-v / 64) ('FFT').
+        rounded sides round(+-v / 64) ('FFT', N = 1024 alone).
     """
-    n, k1, ll, o, _ = bk_coeff.shape
+    n, k1, ll, o, n_poly = bk_coeff.shape
+    _, l, _ = transform_shape(n_poly)
+    if not exact:
+        _check_rounded(n_poly)
     dev = bk_coeff.device
-    v = _exact_mm(bk_coeff.long().reshape(-1, N), forward_matrix(dev))
+    v = _exact_mm(bk_coeff.long().reshape(-1, n_poly),
+                  forward_matrix(n_poly, dev))
     r = v & MASK38
     pos, neg = _centred38(r), _centred38((-r) & MASK38)
     if not exact:
         pos, neg = (pos + 32) >> 6, (neg + 32) >> 6
-    pos = pos.view(n, k1 * ll, o, L, R)
-    neg = neg.view(n, k1 * ll, o, L, R)
+    pos = pos.view(n, k1 * ll, o, l, R)
+    neg = neg.view(n, k1 * ll, o, l, R)
     u = torch.arange(R, device=dev).view(R, 1)
     kk = torch.arange(R, device=dev).view(1, R)
     idx = ((kk - u) % R).reshape(-1)
     lower = (u <= kk).reshape(-1)
     out = torch.where(lower, pos[..., idx], neg[..., idx])
-    return out.view(n, k1 * ll, o, L, R, R)
+    return out.view(n, k1 * ll, o, l, R, R)
 
 
 def decompose(acc, offset, l, log2_base):
@@ -177,33 +205,41 @@ def decompose(acc, offset, l, log2_base):
     u = (acc + offset) & MASK32
     digits = [((u >> (32 - (d + 1) * log2_base)) & (base - 1)) - base // 2
               for d in range(l)]
-    return torch.stack(digits, dim=2).reshape(acc.shape[0], -1, N)
+    return torch.stack(digits, dim=2).reshape(acc.shape[0], -1,
+                                              acc.shape[-1])
 
 
 def external_product(digits, key_i, exact):
     """sum_g digits_g * key_i[g, o] for each output polynomial o: (B, G, N)
     digits, the step's key (G, O, L, R, R) -> (B, O, N) Torus32."""
-    b, g, _ = digits.shape
+    b, g, n = digits.shape
+    _, l, shift = transform_shape(n)
+    if not exact:
+        _check_rounded(n)
     o = key_i.shape[1]
     dev = digits.device
-    x = _exact_mm(digits.reshape(-1, N), forward_matrix(dev))   # |x| < 2^14
-    x = x.view(b, g, L, R).permute(2, 0, 1, 3).reshape(L, b, g * R)
-    t = key_i.permute(2, 0, 3, 1, 4).reshape(L, g * R, o * R)
+    # |x| <= M base / 2 <= 2^14, so with 13-bit limbs of the key every sum
+    # of the pointwise products is below g R 2^27 <= 9 x 2^32 (l <= 3, k <= 2)
+    x = _exact_mm(digits.reshape(-1, n), forward_matrix(n, dev))
+    x = x.view(b, g, l, R).permute(2, 0, 1, 3).reshape(l, b, g * R)
+    t = key_i.permute(2, 0, 3, 1, 4).reshape(l, g * R, o * R)
     acc_hat = _from_limbs([_exact_mm(x, part) for part in _limbs(t)])
-    acc_hat = acc_hat.view(L, b, o, R).permute(1, 2, 0, 3).reshape(b * o,
-                                                                 L * R)
-    c = _from_limbs([_exact_mm(part, inverse_matrix(dev))
+    acc_hat = acc_hat.view(l, b, o, R).permute(1, 2, 0, 3).reshape(b * o,
+                                                                 l * R)
+    c = _from_limbs([_exact_mm(part, inverse_matrix(n, dev))
                      for part in _limbs(acc_hat & MASK38)])
-    c = ((c & MASK38) >> 6) if exact else c
-    return wrap32(c).view(b, o, N)
+    # L c mod 2^38 over L gives c mod 2^(38 - log2 L), which holds c mod 2^32
+    c = ((c & MASK38) >> shift) if exact else c
+    return wrap32(c).view(b, o, n)
 
 
 def rotate(acc, powers):
     """X^p acc mod (X^N + 1) for each row's p in [0, 2N): (B, C, N)."""
+    n = acc.shape[-1]
     p = powers.long().view(-1, 1, 1)
-    src = (torch.arange(N, device=acc.device).view(1, 1, N) - p) % (2 * N)
-    out = torch.gather(acc, 2, (src % N).expand(acc.shape))
-    return torch.where(src >= N, -out, out)
+    src = (torch.arange(n, device=acc.device).view(1, 1, n) - p) % (2 * n)
+    out = torch.gather(acc, 2, (src % n).expand(acc.shape))
+    return torch.where(src >= n, -out, out)
 
 
 def modswitch(x, m):

@@ -3,7 +3,10 @@ and the benchmark's arithmetic on synthetic numbers and traces."""
 
 import json
 import re
+import shutil
 import statistics
+import time
+import types
 
 import pytest
 
@@ -155,6 +158,19 @@ def test_roofline_formulas():
         + 2 * 2 * 2 * 1024 * 4
 
 
+@pytest.mark.parametrize("mode", ["NTT", "FFT"])
+@pytest.mark.parametrize("k, l", [(1, 2), (2, 3)])
+def test_the_mac_count_follows_the_degree(mode, k, l):
+    """L = 2 N / 32 slots: half the MAC at N = 512, all else equal."""
+    cfg = {"tlwe_mask_size": k, "bs_decomp_length": l,
+           "tlwe_polynomial_degree": 1024, "transform_type": mode}
+    half = dict(cfg, tlwe_polynomial_degree=512)
+    full = yardstick.cmux_mac_ops(cfg, 16384, 500)
+    assert yardstick.cmux_mac_ops(half, 16384, 500) * 2 == full
+    assert yardstick.cmux_mac_ops(dict(cfg, tlwe_polynomial_degree=256),
+                                  16384, 500) * 4 == full
+
+
 def _trace():
     """A span from 100 to 200 us with kernels inside, across and outside
     it, overlapping ones, a memcpy and a host event over the gap."""
@@ -201,15 +217,25 @@ def test_kernel_function_names():
         "at::native::vectorized_elementwise_kernel"
 
 
-class _Run:
-    """What a metric reader sees, from the synthetic trace."""
+SYNTHETIC_COUNT = 7     # the slice value of every declared program counter
 
-    def __init__(self, cell):
+
+class _Run:
+    """What a metric reader sees, from the synthetic trace: its events, and
+    the launch counters and each counter that ``metrics`` (the cell's
+    per-layer metrics by default) declare."""
+
+    def __init__(self, cell, metrics=None):
         c = manifest.Cell(M, cell)
         self.cfg, self.traffic, self.world = c.cfg, c.traffic, c.cfg["cards"]
-        self.busy = yardstick.device_busy(_trace(), "s")
+        self.events = _trace()
+        self.busy = yardstick.device_busy(self.events, "s")
         self.busy_s, self.window_s = 60e-6, 100e-6
+        if metrics is not None:
+            c.per_layer = [{"name": name} for name in metrics]
         self.slice_counters = {"k2": 1, "k3": 2, "k1": 0, "k4": 0}
+        self.slice_counters.update(dict.fromkeys(c.counters(),
+                                                 SYNTHETIC_COUNT))
         self.slice_requests = 1
         self.key_prep_s = 0.05
         self.client = type("D", (), {"gather_s": [0.001, 0.003]})()
@@ -219,38 +245,167 @@ class _Run:
 def test_readers_on_a_synthetic_trace(cell):
     run = _Run(cell)
     for m in M["per_layer"]:
-        if cell not in m.get("workloads", CELLS):
-            continue
-        value = manifest.reader(m["name"])(run)
-        if m["name"] == "key_prep_s":
-            assert value == 0.05
-        elif m["name"].startswith("idle_share"):
-            assert value == pytest.approx(40.0)
-        elif m["name"] == "k2_ms_per_call.gates":
-            assert value == pytest.approx(0.02)
-        elif m["name"] == "torch_ms_per_call.gates":
-            assert value == pytest.approx(5 / 1e3)    # the kernel "late"
-        elif m["name"] == "k3_roofline.gates":
-            bound = yardstick.cmux_bound_s(run.cfg, run.traffic["batch"],
-                                           run.cfg["lwe_size"])
-            assert value == pytest.approx(100 * bound / 40e-6)
-        elif m["name"] == "k3_us_per_step.circuit":
-            assert value == pytest.approx(40.0 / run.cfg["lwe_size"])
-        elif m["name"] == "gate_calls_per_request.circuit":
-            assert value == 1
-        elif m["name"] == "gather_ms_per_request.dp4":
-            assert value == pytest.approx(3.0)   # after the warm-up's
-        elif m["name"] == "k4_roofline.dp4":
-            assert value is None        # no K4 in the synthetic trace
-            run.busy = {"functions": {"lanes_mac_kernel": {"us": 3e6},
-                                      "lanes_inverse_kernel": {"us": 1e6}}}
-            bound = yardstick.cmux_bound_s(run.cfg, 16384, 500)
-            assert manifest.reader(m["name"])(run) == pytest.approx(
-                100 * bound / 4.0)
-            run.busy = yardstick.device_busy(_trace(), "s")
-        else:
-            raise AssertionError("no expectation for %s" % m["name"])
+        if cell in m.get("workloads", CELLS):
+            _check_reader(m["name"], run)
 
+
+def _check_reader(name, run):
+    """The reader of the metric ``name`` on a synthetic run against its
+    expectation: a branch here, or the value of ``on_synthetic(run)`` in
+    the reader's own file.  That value is worked out from the synthetic
+    trace's known durations and counts, so ``on_synthetic`` may be neither
+    ``read`` itself nor call it."""
+    module = manifest.reader_module(name)
+    expect = getattr(module, "on_synthetic", None)
+    if expect is not None and (expect is module.read or "read" in
+                               expect.__code__.co_names):
+        raise AssertionError("on_synthetic of %s reads its value through "
+                             "read(), so it checks nothing" % name)
+    value = module.read(run)
+    if name == "key_prep_s":
+        assert value == 0.05
+    elif name.startswith("idle_share"):
+        assert value == pytest.approx(40.0)
+    elif name == "k2_ms_per_call.gates":
+        assert value == pytest.approx(0.02)
+    elif name == "torch_ms_per_call.gates":
+        assert value == pytest.approx(5 / 1e3)    # the kernel "late"
+    elif name == "k3_roofline.gates":
+        tr = run.traffic
+        samples = tr["batch"] * (2 if tr["gate"] == "mux" else 1)
+        bound = yardstick.cmux_bound_s(run.cfg, samples,
+                                       run.cfg["lwe_size"])
+        assert value == pytest.approx(100 * bound / 40e-6)
+    elif name == "k3_us_per_step.circuit":
+        assert value == pytest.approx(40.0 / run.cfg["lwe_size"])
+    elif name == "gate_calls_per_request.circuit":
+        assert value == 1
+    elif name == "gather_ms_per_request.dp4":
+        assert value == pytest.approx(3.0)   # after the warm-up's
+    elif name == "k4_roofline.dp4":
+        assert value is None        # no K4 in the synthetic trace
+        run.busy = {"functions": {"lanes_mac_kernel": {"us": 3e6},
+                                  "lanes_inverse_kernel": {"us": 1e6}}}
+        bound = yardstick.cmux_bound_s(run.cfg, 16384, 500)
+        assert module.read(run) == pytest.approx(100 * bound / 4.0)
+        run.busy = yardstick.device_busy(_trace(), "s")
+    elif expect is not None:
+        want = expect(run)
+        if want is None:
+            assert value is None, name
+        else:
+            assert value == pytest.approx(want), name
+    else:
+        raise AssertionError("no expectation for %s" % name)
+
+
+PROBE = """
+COUNTERS = ("ops.blind_rotate.steps",)
+
+
+def read(run):
+    spans = [e for e in run.events if e.get("cat") == "user_annotation"]
+    return run.slice_counters["ops.blind_rotate.steps"] / len(spans)
+"""
+
+
+def test_a_reader_file_brings_its_counters_and_its_expectation(
+        tmp_path, monkeypatch):
+    """A metric's file alone declares a program counter, reads it and the
+    slice's events, and carries its value on the synthetic trace
+    (``on_synthetic``); a file with neither that nor a branch of
+    ``_check_reader`` fails the synthetic-trace check."""
+    folder = tmp_path / "benchmark"
+    shutil.copytree(manifest.BENCH_DIR / "traffic", folder / "traffic")
+    (folder / "metrics").mkdir()
+    (folder / "metrics" / "probe_steps.gates.py").write_text(
+        PROBE + "\n\ndef on_synthetic(run):\n    return 7.0\n")
+    (folder / "metrics" / "probe_bare.gates.py").write_text(PROBE)
+    monkeypatch.setattr(manifest, "BENCH_DIR", folder)
+    run = _Run("fft.nand_b16384", ["probe_steps.gates", "probe_bare.gates"])
+    assert run.slice_counters["ops.blind_rotate.steps"] == SYNTHETIC_COUNT
+    _check_reader("probe_steps.gates", run)
+    with pytest.raises(AssertionError, match="no expectation"):
+        _check_reader("probe_bare.gates", run)
+
+
+@pytest.mark.parametrize("expectation", [
+    "on_synthetic = read\n",
+    "def on_synthetic(run):\n    return read(run)\n"])
+def test_an_expectation_may_not_come_from_the_reader(
+        expectation, tmp_path, monkeypatch):
+    """``on_synthetic`` that is ``read``, or calls it, fails the
+    synthetic-trace check whatever it returns."""
+    folder = tmp_path / "benchmark"
+    shutil.copytree(manifest.BENCH_DIR / "traffic", folder / "traffic")
+    (folder / "metrics").mkdir()
+    (folder / "metrics" / "probe_self.gates.py").write_text(
+        PROBE + "\n\n" + expectation)
+    monkeypatch.setattr(manifest, "BENCH_DIR", folder)
+    run = _Run("fft.nand_b16384", ["probe_self.gates"])
+    with pytest.raises(AssertionError, match="checks nothing"):
+        _check_reader("probe_self.gates", run)
+
+
+@pytest.mark.parametrize("key", sorted(program.LAUNCHES))
+def test_the_launch_counters_resolve(key):
+    """Each launch counter the readers read by the benchmark's name is a
+    program counter of the port, resolved as a declared one is."""
+    module, attr = program.program_counter(program.LAUNCHES[key],
+                                           "the harness")
+    assert attr == "launches" and type(getattr(module, attr)) is int
+
+
+@pytest.mark.parametrize("name", ["ops.blind_rotate.stepz", "steps",
+                                  "ops.no_such_module.steps",
+                                  "ops.blind_rotate.torch"])
+def test_a_counter_that_does_not_resolve_raises(name):
+    with pytest.raises(ValueError, match="probe.gates"):
+        program.program_counter(name, "probe.gates")
+
+
+def test_a_declared_counter_reads_its_slice_value(monkeypatch):
+    """A traced CPU run of a small cell with a reader that declares
+    ``ops.blind_rotate.steps``, counted here once a bootstrap: the run
+    resets it before the slice (from 1000) and the reader sees the slice's
+    count and the slice's events; a name that does not resolve stops the
+    run and names the reader."""
+    from nufhe_tpu_torch.ops import blind_rotate, bootstrap
+    from benchmark.lib import runner
+    from benchmark.tests.conftest import small_cell
+
+    real = bootstrap.bootstrap_device
+
+    def counted(*args, **kwds):
+        blind_rotate.steps += 1
+        return real(*args, **kwds)
+
+    monkeypatch.setattr(bootstrap, "bootstrap_device", counted)
+    monkeypatch.setattr(blind_rotate, "steps", 1000)
+    seen = {}
+
+    def read(run):
+        seen["events"] = run.events
+        return run.slice_counters["ops.blind_rotate.steps"]
+
+    probe = types.SimpleNamespace(COUNTERS=("ops.blind_rotate.steps",),
+                                  read=read)
+    modules = manifest.reader_module
+    monkeypatch.setattr(manifest, "reader_module", lambda name: probe
+                        if name == "probe.gates" else modules(name))
+    cell = small_cell("fft.nand_b16384")
+    cell.per_layer.append({"name": "probe.gates", "unit": "steps"})
+    assert cell.counters()["ops.blind_rotate.steps"] == "probe.gates"
+    res = runner.run_cell(cell, 2**33 + 9, 0.1, True, "cpu",
+                          time.perf_counter(), log=lambda *a: None)
+    assert res["correct"]
+    assert res["metrics"]["probe.gates"]["value"] == \
+        cell.traffic["trace_requests"] * cell.traffic["gates_per_request"]
+    assert any(e.get("name") == runner.SLICE_SPAN for e in seen["events"])
+    probe.COUNTERS = ("ops.blind_rotate.stepz",)
+    with pytest.raises(ValueError, match="probe.gates"):
+        runner.run_cell(cell, 2**33 + 9, 0.1, True, "cpu",
+                        time.perf_counter(), log=lambda *a: None)
 
 
 def test_a_configuration_sets_performance_and_its_control():
